@@ -1,14 +1,14 @@
 """On-chip end-to-end AMG-CG wall-clock at the reference's two headline
 configurations (performance/amg/smoothed_aggregation.cu and the
 performance/solver/cg.cu scale), with the model-guided per-level rails
-(spmv_config={}) that replaced the hardcoded binned pick.
+(spmv_config={}).
 
 Usage: python benchmarks/amg_endtoend.py [N] [rtol] [dtype]
   N      grid side (default 1000 -> 1M unknowns)
   rtol   relative tolerance (default 1e-5)
   dtype  float32|float64 (default float32)
 
-Prints setup time, V-cycle marginal, iterations, warm solve wall-clock,
+Prints setup time, V-cycle device time, iterations, warm solve wall-clock,
 and s/iter.  Reference analogue: performance/amg/smoothed_aggregation.cu
 prints setup/solve timing and V-cycle counts for SA-AMG vs plain CG.
 """
@@ -33,7 +33,7 @@ from cusp_autotuned_tpu.precond.aggregation import \
     smoothed_aggregation                                       # noqa: E402
 from cusp_autotuned_tpu.solvers.monitor import Monitor         # noqa: E402
 from cusp_autotuned_tpu.utils.config import enable_compile_cache  # noqa: E402
-from benchmarks.harness import time_fn_marginal                # noqa: E402
+from benchmarks.harness import time_fn_device                # noqa: E402
 
 
 def main():
@@ -59,8 +59,8 @@ def main():
     b = jnp.asarray(rng.randn(A.num_rows).astype(dtype))
     # M rides as a jit ARGUMENT: closing over it would embed every planned
     # array as a compile-request constant (size-capped, slow at 1M rows)
-    tm, traw = time_fn_marginal(jax.jit(lambda v, M_: M_(v)), b, M)
-    print(f"V-cycle marginal {tm*1e3:.2f} ms ({traw*1e3:.2f} ms/call)")
+    tm, traw = time_fn_device(jax.jit(lambda v, M_: M_(v)), b, M)
+    print(f"V-cycle device {tm*1e3:.2f} ms ({traw*1e3:.2f} ms/call)")
 
     # the CG operator itself goes through the cost model's zero-compile
     # pick (via_dia on this stencil)

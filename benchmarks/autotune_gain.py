@@ -11,7 +11,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from benchmarks.harness import time_fn_marginal
+from benchmarks.harness import time_fn_device
 from benchmarks.bytes_per_spmv import bytes_per_spmv
 
 
@@ -36,20 +36,16 @@ def run(small: bool = False, scale: int | None = None):
             except FormatConversionException:
                 continue
             f_def = jax.jit(build_spmv(A, default_config(A)))
-            # marginal timing: the fixed ~28 ms relay dispatch cost would
-            # otherwise flatten every fast config to ~fixed/reps
-            t_def, _ = time_fn_marginal(f_def, x)
+            t_def, _ = time_fn_device(f_def, x)
             tuner.tune(A, np.asarray(x), reference_computation=reference_spmv)
             best = tuner.best_configuration(A)
             f_best = jax.jit(build_spmv(A, best))
-            t_best, _ = time_fn_marginal(f_best, x)
+            t_best, _ = time_fn_device(f_best, x)
             print(f"{name:16s} {fmt:5s} {t_def*1e6:11.1f} {t_best*1e6:10.1f} "
                   f"{t_def/t_best:8.2f}x  {best}")
 
 
 if __name__ == "__main__":
-    from benchmarks.harness import setup_backend
-    setup_backend()
     import argparse
     p = argparse.ArgumentParser()
     p.add_argument("--small", action="store_true")

@@ -40,6 +40,4 @@ def run(grid: int = 300):
 
 
 if __name__ == "__main__":
-    from benchmarks.harness import setup_backend
-    setup_backend()
     run()

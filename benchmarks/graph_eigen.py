@@ -50,7 +50,5 @@ def bench_eigen(grid: int = 60):
 
 
 if __name__ == "__main__":
-    from benchmarks.harness import setup_backend
-    setup_backend()
     bench_graph()
     bench_eigen()

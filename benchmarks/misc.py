@@ -11,7 +11,7 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-from benchmarks.harness import time_fn_marginal
+from benchmarks.harness import time_fn_device
 
 
 def bench_spmm(grid: int = 300, k: int = 32):
@@ -26,10 +26,10 @@ def bench_spmm(grid: int = 300, k: int = 32):
     for fmt in ("dia", "ell", "csr"):
         A = gallery.poisson5pt(grid, grid, format=fmt, dtype=np.float32)
         f = jax.jit(lambda X, A=A: multiply(A, X))
-        tm, t = time_fn_marginal(f, X)
+        tm, t = time_fn_device(f, X)
         flops = 2 * A.nnz * k
         print(f"  {fmt:4s} {t*1e3:8.2f} ms (marg {tm*1e3:.3f})  "
-              f"{flops/tm/1e9:8.2f} GFLOP/s marginal")
+              f"{flops/tm/1e9:8.2f} GFLOP/s (device time)")
 
 
 def bench_blas(n: int = 1 << 22):
@@ -45,9 +45,9 @@ def bench_blas(n: int = 1 << 22):
         ("dot", jax.jit(lambda x, y: blas.dot(x, y)), 8 * n),
         ("nrm2", jax.jit(lambda x, y: blas.nrm2(x)), 4 * n),
     ]:
-        tm, t = time_fn_marginal(f, x, y)
+        tm, t = time_fn_device(f, x, y)
         print(f"  {name:5s} {t*1e6:9.1f} us (marg {tm*1e6:.1f})  "
-              f"{bytes_/tm/1e9:8.2f} GB/s marginal")
+              f"{bytes_/tm/1e9:8.2f} GB/s (device time)")
 
 
 def bench_overhead(n_calls: int = 50):
@@ -115,8 +115,6 @@ def bench_spgemm(grid: int = 140):
 
 
 if __name__ == "__main__":
-    from benchmarks.harness import setup_backend
-    setup_backend()
     bench_spmm()
     bench_blas()
     bench_overhead()

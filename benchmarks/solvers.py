@@ -59,8 +59,6 @@ def bench_amg(grid: int = 200, tol: float = 1e-10):
 
 
 if __name__ == "__main__":
-    from benchmarks.harness import setup_backend
-    setup_backend()
     import argparse
     p = argparse.ArgumentParser()
     p.add_argument("--grid", type=int, default=1000)

@@ -22,55 +22,21 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from benchmarks.harness import (setup_backend, time_fn, time_fn_marginal, stream_bandwidth_gbps)
+from benchmarks.harness import time_fn_device, stream_bandwidth_gbps  # noqa: E402
 
 
 def candidate_configs(rect: bool):
     cfgs = [
         ("segsum", {"impl": "segsum"}),
-        ("binned", {"impl": "binned", "block_entries": 4096,
-                    "col_window": 2048, "row_window": 512}),
-        ("binned-wide", {"impl": "binned", "block_entries": 8192,
-                         "col_window": 8192, "row_window": 1024}),
-        ("colsort", {"impl": "colsort", "block_entries": 4096,
-                     "col_window": 16384, "row_window": 2048}),
-        ("colsort-wide", {"impl": "colsort", "block_entries": 16384,
-                          "col_window": 131072, "row_window": 4096}),
-        ("colsort-wide-h32", {"impl": "colsort", "block_entries": 16384,
-                              "col_window": 131072, "row_window": 4096,
-                              "hub_rows": 32}),
-        ("onehot", {"impl": "pallas", "block_entries": 2048,
-                    "col_window": 4096}),
-        ("colsort2", {"impl": "colsort2"}),
-        ("colsort2-w1", {"impl": "colsort2", "col_window": 16384}),
-        ("colsort2-hub8", {"impl": "colsort2", "hub_cap": 8}),
-        ("colsort2-k1", {"impl": "colsort2", "vrow_planes": 1}),
-        ("colsort2-mix8", {"impl": "colsort2", "vrow_planes": 1,
-                           "mix_chunks": 8}),
-        ("colsort2-mix4", {"impl": "colsort2", "vrow_planes": 1,
-                           "mix_chunks": 4}),
-        ("colsort2-mix8-hub8", {"impl": "colsort2", "vrow_planes": 1,
-                                "mix_chunks": 8, "hub_cap": 8}),
-        ("routed", {"impl": "routed"}),
-        ("routed-r128", {"impl": "routed", "vrow_span": 128}),
-        ("routed-w2", {"impl": "routed", "win_group": 2}),
-        ("routed-r128-hub8", {"impl": "routed", "vrow_span": 128,
-                              "hub_cap": 8}),
-        # bf16 plan-value storage halves the dominant HBM stream (f32
-        # accumulate); validated against the f64 oracle at 1e-2 tolerance
-        # by the tuner, here it must still pass the suite's 1e-4 gate on
-        # well-conditioned rows or read BADVAL (recorded, not hidden)
-        # the Pallas inner kernel is REQUIRED for the bf16 win: XLA's
-        # fused path hoists a bf16->f32 convert of the whole data array
-        # (measured tie on QCD), while the Pallas kernel upcasts in-reg
-        # (measured 28 vs 53 us, benchmarks/dia_qcd_probe.py)
-        ("via_dia-bf16", {"impl": "via_dia", "dia_impl": "pallas",
-                          "value_dtype": "bfloat16"}),
+        ("bcoo", {"impl": "bcoo"}),
+        # bf16 diagonal storage halves the dominant device-memory stream
+        # (f32 accumulate); here it must still pass the suite's 1e-4 gate
+        # on well-conditioned rows or read BADVAL (recorded, not hidden)
+        ("via_dia-bf16", {"impl": "via_dia", "value_dtype": "bfloat16"}),
     ]
     if not rect:
-        cfgs.append(("via_dia", {"impl": "via_dia", "dia_impl": "pallas",
-                                 "block_rows": 4096}))
-    # plain MXU GEMV for dense-enough patterns (guard skips sparse ones)
+        cfgs.append(("via_dia", {"impl": "via_dia"}))
+    # plain GEMV for dense-enough patterns (guard skips sparse ones)
     cfgs.append(("via_dense", {"impl": "via_dense"}))
     return cfgs
 
@@ -91,7 +57,6 @@ def main():
     ap.add_argument("--out", type=str, default="/tmp/spmv_suite_results.json")
     args = ap.parse_args()
 
-    setup_backend()
     import jax
     import jax.numpy as jnp
     from cusp_autotuned_tpu.gallery.suite import williams_suite, stencil_suite
@@ -99,8 +64,8 @@ def main():
     from cusp_autotuned_tpu.kernels.variants import build_spmv
 
     # one full-size stream calibration for the whole sweep: the probe's
-    # working set must overflow VMEM, so "matched-size" per-row probes are
-    # meaningless (a 7 MB probe stays VMEM-resident and reads >5 TB/s)
+    # working set must overflow the on-chip cache, so "matched-size"
+    # per-row probes are meaningless (a small probe stays cache-resident)
     stream_gbps = stream_bandwidth_gbps()
     print(json.dumps({"stream_gbps": round(stream_gbps, 1)}))
 
@@ -139,7 +104,7 @@ def main():
                 if err > tol:
                     results[label] = ("BADVAL", err)
                     continue
-                tm, t = time_fn_marginal(fn, x)
+                tm, t = time_fn_device(fn, x)
                 results[label] = (t, err, tm)
             except Exception as e:  # noqa: BLE001 — skippable (KTT semantics)
                 results[label] = ("SKIP", str(e)[:60])
@@ -189,7 +154,7 @@ def main():
                 cfg_t = tuner.best_configuration(A, np.asarray(x))
                 fn_t = jax.jit(build_spmv(A, cfg_t))
                 jax.block_until_ready(fn_t(x))
-                tm_t, t_t = time_fn_marginal(fn_t, x)
+                tm_t, t_t = time_fn_device(fn_t, x)
                 row["tuned"] = {
                     "config": cfg_t,
                     "marginal_ms": round(max(tm_t, 1e-9) * 1e3, 3),
@@ -203,7 +168,7 @@ def main():
         rows_out.append(row)
         print(json.dumps(row))
 
-    # stencil suite: DIA pallas kernel
+    # stencil suite: the DIA slices rail
     for name, A in ({} if args.no_stencil
                     else stencil_suite(min(args.scale, 1.0))).items():
         m, n = A.shape
@@ -211,20 +176,13 @@ def main():
         x = jnp.asarray(rng.randn(n).astype(np.float32))
         k = A.num_diagonals
         useful = (k * A.rows_padded + 2 * m) * 4
-        try:
-            fn = jax.jit(build_spmv(A, {"impl": "pallas",
-                                        "block_rows": 4096}))
-            jax.block_until_ready(fn(x))
-            tm, t = time_fn_marginal(fn, x)
-        except Exception:  # noqa: BLE001
-            fn = jax.jit(build_spmv(A, {"impl": "slices"}))
-            jax.block_until_ready(fn(x))
-            tm, t = time_fn_marginal(fn, x)
+        fn = jax.jit(build_spmv(A, {"impl": "slices"}))
+        tm, t = time_fn_device(fn, x)
         st = stream_gbps
         gbps = useful / t / 1e9
         marg_gbps = useful / max(tm, 1e-9) / 1e9
         row = {"matrix": name, "rows": m, "nnz": int(k * m),
-               "best": "dia-pallas", "ms": round(t * 1e3, 3),
+               "best": "dia-slices", "ms": round(t * 1e3, 3),
                "marginal_ms": round(tm * 1e3, 3),
                "gbps": round(gbps, 2), "stream_gbps": round(st, 1),
                "frac": round(gbps / st, 2),

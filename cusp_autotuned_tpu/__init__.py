@@ -1,19 +1,20 @@
-"""cusp_autotuned_tpu — a TPU-native sparse linear algebra framework.
+"""cusp_autotuned_tpu — sparse linear algebra in JAX, run on an NVIDIA GPU.
 
-A ground-up JAX/XLA/Pallas rebuild of the capability surface of CUSP v0.6.0-dev
-plus its KTT autotuning fork (reference: bigno78/cusp-autotuned).  This is not a
-port: containers are JAX pytrees with lane-aligned (128) padded layouts, the
-algorithm verbs are jitted functions dispatched on format type (replacing the
-reference's Thrust ADL tag dispatch, cusp/system/detail/adl/*), the hot SpMV
-kernels are Pallas TPU kernels, and the KTT autotuning layer (cusp/ktt/ktt.h)
-is reborn as `autotune`: a searcher over Pallas meta-parameters and per-matrix
-format selection with a persistent on-disk cache.
+A JAX/XLA rebuild of the capability surface of CUSP v0.6.0-dev plus
+its KTT autotuning fork (reference: bigno78/cusp-autotuned).  Containers are
+JAX pytrees with padded static layouts, the algorithm verbs are jitted
+functions dispatched on format type (replacing the reference's Thrust ADL
+tag dispatch, cusp/system/detail/adl/*), the SpMV rails are XLA spellings
+per format plus format-selection moves, and the KTT autotuning layer
+(cusp/ktt/ktt.h) is reborn as `autotune`: a searcher over kernel strategies
+and their meta-parameters, with per-matrix format selection and a
+persistent on-disk cache.
 
 Layer map (mirrors SURVEY.md §1):
   formats/   containers: COO, CSR, DIA, ELL, ELLR, HYB, permutation, dense
   ops/       verbs: multiply, convert, transpose, elementwise, sort,
              format_utils, verify, print, blas, lapack
-  kernels/   Pallas TPU SpMV kernels (DIA/ELL/ELLR/CSR/COO)
+  kernels/   SpMV kernel variants (XLA rails + format-selection moves)
   autotune/  the KTT-equivalent tuner: enable/disable, tune, searchers,
              stop conditions, persistent result cache
   solvers/   Krylov: cg, cg_m, bicg, bicgstab, bicgstab_m, cr, gmres + monitor
@@ -22,7 +23,7 @@ Layer map (mirrors SURVEY.md §1):
   graph/     bfs, connected components, MIS, coloring, RCM, hilbert
   io/        MatrixMarket, binary, DIMACS
   gallery/   poisson / grid / diffusion / random / stencil generators
-  parallel/  multi-chip sharded SpMV + solvers over a jax.sharding.Mesh
+  parallel/  multi-device sharded SpMV + solvers over a jax.sharding.Mesh
   backend/   NumPy/SciPy reference oracle (the `sequential` backend analogue)
 """
 
@@ -61,11 +62,3 @@ if _get_config().autotune_on_import:
     from cusp_autotuned_tpu import autotune as _autotune
     _autotune.enable()
 
-# CUSP_TPU_COMPILE_CACHE=<dir|1>: persistent XLA-executable cache (makes
-# repeated tuning walks execution-bound instead of compile-bound)
-import os as _os
-
-if _os.environ.get("CUSP_TPU_COMPILE_CACHE", "").strip() not in ("", "0"):
-    from cusp_autotuned_tpu.utils.config import (
-        enable_compile_cache as _enable_cc)
-    _enable_cc()

@@ -11,9 +11,9 @@ Public API parity:
                                   (ktt.h:90-101)
   reset_tuning(A)               — clear accumulated results (ktt.h:117-124)
 
-Instead of NVRTC-compiled CUDA text, configurations are Pallas/XLA kernel
-meta-parameters (block shapes, rows-per-program, masking strategy, and
-format selection); validation compares against the SciPy reference oracle.
+Instead of NVRTC-compiled CUDA text, configurations are XLA kernel
+strategies and their knobs (the SpMV rail, format selection, bf16 value
+storage); validation compares against the SciPy reference oracle.
 """
 
 from cusp_autotuned_tpu.autotune.tuner import (

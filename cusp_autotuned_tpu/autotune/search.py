@@ -37,8 +37,8 @@ class ModelGuidedSearcher(Searcher):
     time (autotune.cost_model), best-predicted-first and stable within a
     class — so a time-bounded tune (TuningDuration) measures the likely
     winners before the long tail.  KTT ships only Deterministic/Random
-    searchers; the model-guided order is the TPU-side answer to XLA's much
-    higher per-configuration compile cost."""
+    searchers; the model-guided order answers XLA's much higher
+    per-configuration compile cost."""
 
     def __init__(self, A, device: Dict[str, float] = None):
         from cusp_autotuned_tpu.autotune.cost_model import model_order_key

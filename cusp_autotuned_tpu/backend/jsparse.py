@@ -4,7 +4,7 @@ Parity: the reference's cusparse/cublas adapter paths
 (cusp/system/cuda/detail/cusparse/cusparse_spmv.h:72,
 cusparse_csr_matrix.h; cublas binding cublas/execute_with_cublas.h:37-86)
 — optional vendor-library baselines that sit NEXT TO the native kernels
-and share the same verbs.  On TPU the "vendor sparse library" is
+and share the same verbs.  Here the "vendor sparse library" is
 jax.experimental.sparse; these adapters convert containers to/from BCOO
 and expose a BCOO-backed SpMV usable as an explicit `impl="bcoo"`
 configuration (kept out of the default tuning walk: it exists as a

@@ -18,7 +18,7 @@ def to_scipy(A):
 
     Cached per container (`_host_scipy`), and built from the host COO
     mirror when one exists — repeated setup-time oracle reads then never
-    pull arrays back through the device relay.  The returned object is
+    pull arrays back from the device.  The returned object is
     SHARED across calls: treat it as read-only (make an explicit .copy()
     before mutating), matching the containers' own immutability."""
     cached = getattr(A, "_host_scipy", None)

@@ -27,10 +27,12 @@ def _arnoldi_device(A, q0, k):
         w = multiply(A, Q[j])
         # classical GS twice (numerically ~ modified GS) against rows <= j;
         # rows beyond j are zero so the matmul form is exact
-        h1 = Q @ w
-        w = w - Q.T @ h1
-        h2 = Q @ w
-        w = w - Q.T @ h2
+        # full precision: a TF32 product would lose orthogonality
+        hi = jax.lax.Precision.HIGHEST
+        h1 = jnp.matmul(Q, w, precision=hi)
+        w = w - jnp.matmul(Q.T, h1, precision=hi)
+        h2 = jnp.matmul(Q, w, precision=hi)
+        w = w - jnp.matmul(Q.T, h2, precision=hi)
         h = h1 + h2
         beta = jnp.linalg.norm(w)
         Q = Q.at[j + 1].set(jnp.where(beta > 1e-12,

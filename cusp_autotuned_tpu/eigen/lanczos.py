@@ -29,8 +29,8 @@ def lanczos(A, options: LanczosOptions | None = None, *, return_eigvecs=False,
 
     mesh: distribute over a jax.sharding.Mesh — A row-sharded, the Lanczos
     vectors replicated; the per-step matvec runs shard-local and every dot
-    product becomes an ICI all-reduce inserted by GSPMD (TPU-native
-    extension beyond the single-GPU reference, SURVEY §2.6)."""
+    product becomes an all-reduce inserted by GSPMD (an extension beyond
+    the single-GPU reference, SURVEY §2.6)."""
     options = options or LanczosOptions()
     k = min(options.iteration_limit, A.num_rows)
     if mesh is not None:

@@ -68,7 +68,7 @@ import functools
 @functools.partial(jax.jit, static_argnames=("k",))
 def _lanczos_device(A, v0, k):
     """k-step Lanczos with full reorthogonalization as ONE jitted fori_loop
-    program — a host round trip per step costs ~30 ms through the relay."""
+    program — no host round trip per step."""
     n = v0.shape[0]
     dtype = v0.dtype
     V = jnp.zeros((k + 1, n), dtype).at[0].set(v0 / jnp.linalg.norm(v0))

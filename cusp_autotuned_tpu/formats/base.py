@@ -5,7 +5,7 @@ Replaces the reference's type machinery — cusp::detail::matrix_base
 (cusp/detail/format.h) — with Python dataclasses registered as JAX pytrees.
 Array members are pytree leaves (so containers flow through jit / grad /
 shard_map); shape and nnz are static metadata (so jit specializes on them,
-the TPU analogue of CUSP's compile-time dispatch on format tags).
+the analogue of CUSP's compile-time dispatch on format tags).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def static_field(**kwargs):
 
 class MatrixBase:
     """Common interface: num_rows / num_cols / num_entries (parity with
-    cusp/detail/matrix_base.h), plus TPU-side conveniences."""
+    cusp/detail/matrix_base.h), plus JAX-side conveniences."""
 
     format: str = "unknown"
 

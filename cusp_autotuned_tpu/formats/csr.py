@@ -3,12 +3,12 @@
 Parity target: cusp::csr_matrix (cusp/csr_matrix.h:107, members
 row_offsets/column_indices/values at :150-158).
 
-TPU-native layout: col/val padded to a multiple of 128 with col == 0,
+Layout: col/val padded to a multiple of 128 with col == 0,
 val == 0 beyond indptr[num_rows]; indptr is the exact (num_rows+1) offsets
 array.  The expanded per-entry row ids (the reference's csr→coo view trick,
 generic/multiply/spmv.h:243-270) are materialized ONCE at construction and
 carried in the container: +4 bytes/nnz buys segment reductions without a
-per-SpMV searchsorted, which dominates CSR SpMV time on TPU otherwise.
+per-SpMV searchsorted, which would otherwise dominate CSR SpMV time.
 Padding entries carry row == num_rows (dropped by segment reductions).
 """
 

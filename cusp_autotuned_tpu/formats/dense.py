@@ -8,10 +8,9 @@ Parity targets:
     minor dimension may exceed the logical one), plus row()/column() views
     (cusp/detail/array2d_format_utils.h).
 
-TPU-first design: the reference pads the pitch to 32 elements for
-coalesced warp access; here the pitch defaults to the 128-lane boundary so
-every major line starts lane-aligned and XLA tiles the buffer onto the
-VPU/MXU without re-layout.  Containers are pytree dataclasses (flow
+Design: the reference pads the pitch to 32 elements for coalesced warp
+access; here the pitch defaults to a multiple of 128 elements, so every
+major line starts aligned and XLA tiles the buffer without re-layout.  Containers are pytree dataclasses (flow
 through jit / grad / vmap); "views" are functional windows — they
 materialize lazily as jnp slices of the padded buffer (XLA fuses the
 slice into consumers; there is no aliasing mutation, matching JAX

@@ -5,9 +5,9 @@ column_indices/values with invalid_index = -1 padding at :129) and the fork's
 cusp::ktt::ellr_matrix (cusp/ktt/ellr_matrix.h:18-90 — ELL plus an explicit
 per-row length array so kernels skip the padding test).
 
-TPU-native layout: slot-major (width, rows_pad) — each of the `width` entry
-slots is a full 128-lane vector over rows (the same reasoning that made the
-reference choose column-major ELL for coalescing, re-derived for the VPU).
+Layout: slot-major (width, rows_pad) — each of the `width` entry slots is
+a full vector over rows (the same reasoning that made the reference choose
+column-major ELL for coalescing).
 Invalid slots keep the reference's col == -1 sentinel with val == 0.
 """
 

@@ -1,6 +1,6 @@
 """Graph algorithms (parity: cusp/graph/).
 
-TPU-native stance: traversals (BFS, connected components, MIS, coloring) are
+Stance: traversals (BFS, connected components, MIS, coloring) are
 iterated masked semiring SpMV sweeps in jitted while-loops — replacing the
 reference's vendored b40c CUDA BFS (cusp/system/cuda/detail/graph/b40c/**)
 wholesale, as planned in SURVEY.md §2.3.  Orderings (RCM, pseudo-peripheral,

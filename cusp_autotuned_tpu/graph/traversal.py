@@ -4,7 +4,7 @@ Parity: cusp::graph::breadth_first_search (cusp/graph/breadth_first_search.h
 — labels are levels, or predecessors when mark_levels=False) and
 cusp::graph::connected_components (returns component count + labels).
 The reference's CUDA backend used the vendored b40c BFS
-(cusp/system/cuda/detail/graph/b40c/); the TPU rebuild replaces those
+(cusp/system/cuda/detail/graph/b40c/); the rebuild replaces those
 hand-scheduled kernels with masked semiring sweeps whose fixpoint runs
 as ONE jitted lax.while_loop program on device — a full traversal is a
 single dispatch.

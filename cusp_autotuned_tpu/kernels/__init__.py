@@ -1,4 +1,4 @@
-"""SpMV kernel variants: XLA-fused implementations plus Pallas TPU kernels,
+"""SpMV kernel variants: XLA-fused implementations and format-selection moves,
 exposed through a registry the autotuner searches over (the rebuild of the
 fork's runtime-compiled kernel zoo, cusp/system/cuda/ktt/kernels/)."""
 

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import os
 import pathlib
 import subprocess
 
@@ -64,40 +63,6 @@ def _compile() -> ctypes.CDLL | None:
     lib.pseudo_peripheral.argtypes = [ctypes.c_int32, i32p, i32p]
     lib.rcm.restype = None
     lib.rcm.argtypes = [ctypes.c_int32, i32p, i32p, i32p]
-    f32p = ctypes.POINTER(ctypes.c_float)
-    lib.plan_binned.restype = ctypes.c_int64
-    lib.plan_binned.argtypes = [ctypes.c_int64, i64p, i64p, f64p,
-                                ctypes.c_int64, ctypes.c_int64,
-                                ctypes.c_int64,
-                                f32p, i32p, i32p, i32p, i32p,
-                                ctypes.c_int64, ctypes.c_int32]
-    lib.plan_colsort_main.restype = ctypes.c_int64
-    lib.plan_colsort_main.argtypes = [ctypes.c_int64, i64p, i64p, f64p,
-                                      ctypes.c_int64, ctypes.c_int64,
-                                      ctypes.c_int64,
-                                      f32p, i32p, i32p, i32p, i32p,
-                                      ctypes.c_int64, ctypes.c_int32]
-    lib.color_cells.restype = ctypes.c_int64
-    lib.color_cells.argtypes = [ctypes.c_int64, i64p, i32p, i32p, i32p]
-    lib.color_cells_mixed.restype = ctypes.c_int64
-    lib.color_cells_mixed.argtypes = [ctypes.c_int64, i64p, i32p, i32p,
-                                      i32p, ctypes.c_int64, ctypes.c_int64,
-                                      i32p, i32p]
-    lib.color_cells_capped.restype = ctypes.c_int64
-    lib.color_cells_capped.argtypes = [ctypes.c_int64, i64p, i32p, i32p,
-                                       i32p, ctypes.c_int64, ctypes.c_int64,
-                                       i32p]
-    lib.route_cells.restype = ctypes.c_int64
-    lib.route_cells.argtypes = [ctypes.c_int64, i64p, i32p, i32p, i32p,
-                                i32p, ctypes.c_int64, i32p, i32p, i32p]
-    lib.routed_plan.restype = ctypes.c_int64
-    lib.routed_plan.argtypes = [ctypes.c_int64, i64p, i64p,
-                                ctypes.c_int64, ctypes.c_int64,
-                                ctypes.c_int64, ctypes.c_int64,
-                                ctypes.c_int64, ctypes.c_int64,
-                                ctypes.c_double,
-                                i64p, i32p, i32p, i32p, i32p, i32p,
-                                i32p, i32p, i64p, i64p]
     return lib
 
 
@@ -226,195 +191,3 @@ def standard_aggregate(indptr, col):
     n_agg = lib.standard_aggregate(n, _ptr_i32(indptr), _ptr_i32(col),
                                    _ptr_i32(agg), _ptr_i32(roots))
     return agg, roots[:n_agg]
-
-
-# -- SpMV kernel planners -------------------------------------------------------
-
-def _ptr_i64(a):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
-
-
-def _ptr_f32(a):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
-
-
-def plan_binned(row, col, val, B, C, RW, nb_max, aligned=False):
-    """Row-lane-binned block plan (kernels/pallas_binned).  Returns
-    (vals, packed, rbs, cbs, spans) trimmed to the block count, None when
-    the native library is unavailable, and raises ValueError past nb_max.
-    Output buffers start at a tight estimate and grow on overflow —
-    allocating the worst case up front costs more than the plan itself."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    row = np.ascontiguousarray(row, np.int64)
-    col = np.ascontiguousarray(col, np.int64)
-    val = np.ascontiguousarray(val, np.float64)
-    Bs = B // 128
-    cap = min(nb_max, 2 * (row.size // B) + 16)
-    while True:
-        vals = np.empty((cap, Bs, 128), np.float32)
-        packed = np.empty((cap, Bs, 128), np.int32)
-        rbs = np.empty(cap, np.int32)
-        cbs = np.empty(cap, np.int32)
-        spans = np.empty(cap, np.int32)
-        nb = lib.plan_binned(row.size, _ptr_i64(row), _ptr_i64(col),
-                             _ptr_f64(val), B, C, RW,
-                             _ptr_f32(vals), _ptr_i32(packed), _ptr_i32(rbs),
-                             _ptr_i32(cbs), _ptr_i32(spans), cap,
-                             1 if aligned else 0)
-        if nb >= 0:
-            return (vals[:nb], packed[:nb], rbs[:nb], cbs[:nb], spans[:nb])
-        if cap >= nb_max:
-            raise ValueError("plan overflow")
-        cap = min(nb_max, cap * 4)
-
-
-def plan_colsort_main(row, col, val, B, RW, CW, nb_max, aligned=False):
-    """Column-lane-binned main-pass plan (kernels/pallas_colsort).  Entries
-    must be sorted by (row // RW, col).  Returns (vals, chunk, pq, rbs, cbs)
-    or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    row = np.ascontiguousarray(row, np.int64)
-    col = np.ascontiguousarray(col, np.int64)
-    val = np.ascontiguousarray(val, np.float64)
-    Bs = B // 128
-    cap = min(nb_max, 4 * (row.size // B) + 16)
-    while True:
-        vals = np.empty((cap, Bs, 128), np.float32)
-        chunk = np.empty((cap, Bs, 128), np.int32)
-        pq = np.empty((cap, Bs, 128), np.int32)
-        rbs = np.empty(cap, np.int32)
-        cbs = np.empty(cap, np.int32)
-        nb = lib.plan_colsort_main(row.size, _ptr_i64(row), _ptr_i64(col),
-                                   _ptr_f64(val), B, RW, CW,
-                                   _ptr_f32(vals), _ptr_i32(chunk),
-                                   _ptr_i32(pq),
-                                   _ptr_i32(rbs), _ptr_i32(cbs), cap,
-                                   1 if aligned else 0)
-        if nb >= 0:
-            return (vals[:nb], chunk[:nb], pq[:nb], rbs[:nb], cbs[:nb])
-        if cap >= nb_max:
-            raise ValueError("plan overflow")
-        cap = min(nb_max, cap * 4)
-
-
-def color_cells(cell, cl, vlane):
-    """Hardest-first edge coloring for the colsort2 planner.  Entries must
-    be sorted by cell.  Returns the per-entry sublane array or None when
-    the native library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    cell = np.ascontiguousarray(cell, np.int64)
-    cl32 = np.ascontiguousarray(cl, np.int32)
-    vl32 = np.ascontiguousarray(vlane, np.int32)
-    sub = np.empty(cell.size, np.int32)
-    rc = lib.color_cells(cell.size, _ptr_i64(cell), _ptr_i32(cl32),
-                         _ptr_i32(vl32), _ptr_i32(sub))
-    if rc < 0:
-        return None
-    return sub.astype(np.int64)
-
-
-def color_cells_mixed(cell, cl, vlane, qrel, mix, rsp):
-    """Chunk-mixed coloring (colsort2 mix_chunks > 1): entries sorted by
-    cell; returns (sub, mi) or None when the native library is missing."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    cell = np.ascontiguousarray(cell, np.int64)
-    cl32 = np.ascontiguousarray(cl, np.int32)
-    vl32 = np.ascontiguousarray(vlane, np.int32)
-    q32 = np.ascontiguousarray(qrel, np.int32)
-    sub = np.empty(cell.size, np.int32)
-    mi = np.empty(cell.size, np.int32)
-    rc = lib.color_cells_mixed(cell.size, _ptr_i64(cell), _ptr_i32(cl32),
-                               _ptr_i32(vl32), _ptr_i32(q32), int(mix),
-                               int(rsp), _ptr_i32(sub), _ptr_i32(mi))
-    if rc < 0:
-        return None
-    return sub.astype(np.int64), mi.astype(np.int64)
-
-
-def route_cells(cell, res, wlam, vlane, qrel, rsp):
-    """Routed-rail slot assignment (kernels/pallas_routed): entries sorted
-    by cell; returns (blk, sub, lane) with blk a per-cell block ordinal,
-    or None when the native library is unavailable.  wlam = (window << 7)
-    | source_lane identifies the column within its residue class."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    cell = np.ascontiguousarray(cell, np.int64)
-    r32 = np.ascontiguousarray(res, np.int32)
-    wl32 = np.ascontiguousarray(wlam, np.int32)
-    vl32 = np.ascontiguousarray(vlane, np.int32)
-    q32 = np.ascontiguousarray(qrel, np.int32)
-    blk = np.empty(cell.size, np.int32)
-    sub = np.empty(cell.size, np.int32)
-    lane = np.empty(cell.size, np.int32)
-    rc = lib.route_cells(cell.size, _ptr_i64(cell), _ptr_i32(r32),
-                         _ptr_i32(wl32), _ptr_i32(vl32), _ptr_i32(q32),
-                         int(rsp), _ptr_i32(blk), _ptr_i32(sub),
-                         _ptr_i32(lane))
-    if rc < 0:
-        return None
-    return (blk.astype(np.int64), sub.astype(np.int64),
-            lane.astype(np.int64))
-
-
-def color_cells_capped(cell, cl, vlane, qrel, bs, cap):
-    """Capacity-capped coloring (colsort2 mix_chunks='perm'): unique
-    cl/vlane per sublane plus <= cap entries per (bs-sublane block,
-    vlane, qrel).  Entries sorted by cell; returns sub or None."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    cell = np.ascontiguousarray(cell, np.int64)
-    cl32 = np.ascontiguousarray(cl, np.int32)
-    vl32 = np.ascontiguousarray(vlane, np.int32)
-    q32 = np.ascontiguousarray(qrel, np.int32)
-    sub = np.empty(cell.size, np.int32)
-    rc = lib.color_cells_capped(cell.size, _ptr_i64(cell), _ptr_i32(cl32),
-                                _ptr_i32(vl32), _ptr_i32(q32), int(bs),
-                                int(cap), _ptr_i32(sub))
-    if rc < 0:
-        return None
-    return sub.astype(np.int64)
-
-
-def routed_plan(row, col, m, n, K, Wr, RSp, hub_cap, tail_min_fill):
-    """Full routed-rail host plan (kernels/pallas_routed._plan_routed in
-    one C++ pass): sorts, ranks, splits hubs, routes cells, numbers and
-    fill-filters blocks.  Returns (order, kind, blk, sub, lane, vlane,
-    res, wlam, blk_cell, meta) with meta = [nb, n_wg,
-    max_blocks_per_cell, n_nonhub], or None when the native library is
-    unavailable.  hub_cap must be resolved (> 0) by the caller."""
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "routed_plan"):
-        return None
-    r64 = np.ascontiguousarray(row, np.int64)
-    c64 = np.ascontiguousarray(col, np.int64)
-    nnz = int(r64.size)
-    order = np.empty(nnz, np.int64)
-    kind = np.empty(nnz, np.int32)
-    blk = np.empty(nnz, np.int32)
-    sub = np.empty(nnz, np.int32)
-    lane = np.empty(nnz, np.int32)
-    vlane = np.empty(nnz, np.int32)
-    res = np.empty(nnz, np.int32)
-    wlam = np.empty(nnz, np.int32)
-    blk_cell = np.empty(max(nnz, 1), np.int64)
-    meta = np.zeros(4, np.int64)
-    rc = lib.routed_plan(nnz, _ptr_i64(r64), _ptr_i64(c64), int(m), int(n),
-                         int(K), int(Wr), int(RSp), int(hub_cap),
-                         float(tail_min_fill),
-                         _ptr_i64(order), _ptr_i32(kind), _ptr_i32(blk),
-                         _ptr_i32(sub), _ptr_i32(lane), _ptr_i32(vlane),
-                         _ptr_i32(res), _ptr_i32(wlam), _ptr_i64(blk_cell),
-                         _ptr_i64(meta))
-    if rc < 0:
-        return None
-    return (order, kind, blk, sub, lane, vlane, res, wlam, blk_cell, meta)

@@ -4,7 +4,7 @@ Parity target: cusp/blas/blas.h + cusp/detail/blas.inl:34-935 — the full
 family amax asum axpy axpby axpbypcz xmy copy dot dotc nrm1 nrm2 nrmmax scal
 gemv ger symv syr trmv trsv gemm symm syrk trmm trsm.
 
-TPU-native stance: one implementation on jnp/XLA (replacing the reference's
+Stance: one implementation on jnp/XLA (replacing the reference's
 generic/cblas/cublas triple dispatch — XLA *is* the vendor BLAS here), and
 functional semantics: routines return results instead of mutating outputs,
 so they compose with jit/grad and fuse into surrounding solver loops.

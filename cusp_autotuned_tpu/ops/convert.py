@@ -9,7 +9,7 @@ reference's planning heuristics:
   - HYB split via compute_optimal_entries_per_row(relative_speed=3.0,
     breakeven_threshold=4096) (coo_to_other.h:295-318).
 
-TPU-native stance: conversions are *setup-time planning* — sizes are data
+Stance: conversions are *setup-time planning* — sizes are data
 dependent, so they run host-side in NumPy and build lane-aligned padded
 device containers; the resulting containers then flow through jitted compute
 with fully static shapes.
@@ -38,7 +38,7 @@ def _coo_arrays(A):
     """(row, col, val, shape) as host arrays, trimmed of padding, sorted by
     (row, col).  Containers carry a host mirror (`_host_coo`, stashed at
     construction/conversion time) so repeated setup-time reads don't pay a
-    device->host relay round trip per call."""
+    device->host round trip per call."""
     cached = getattr(A, "_host_coo", None)
     if cached is not None:
         return cached
@@ -270,9 +270,9 @@ def convert(src, fmt, **kwargs):
 def copy(src):
     """A deep copy of a container: same format, freshly materialized
     device buffers (parity: cusp::copy, cusp/copy.h:39,84 — the reference's
-    same-format cross-memory-space copy; the TPU rebuild has one memory
+    same-format cross-memory-space copy; the rebuild has one memory
     space, so this is the buffer-duplication half of those semantics).
-    Host-side mirrors are re-attached so the copy stays relay-cheap."""
+    Host-side mirrors are re-attached so the copy needs no device pull."""
     import jax
 
     out = jax.tree_util.tree_map(

@@ -2,7 +2,7 @@
 divide_value, modulus_value, sum_pair_functor, constant_functor,
 valid_index_functor).
 
-TPU-native stance: functors are plain Python callables closing over jnp
+Stance: functors are plain Python callables closing over jnp
 ops; jit inlines them, so these exist for API parity and for passing into
 the semiring verbs (generalized_spmv / generalized_spgemm)."""
 

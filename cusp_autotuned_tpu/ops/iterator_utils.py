@@ -4,7 +4,7 @@ Parity target: cusp/iterator/ — join_iterator (join_iterator.h:141),
 strided_iterator (strided_iterator.h:78), random_iterator
 (random_iterator.h:81), plus counting/constant arrays (cusp/array1d.h).
 
-On TPU there is no lazy iterator machinery: XLA fuses the materializing
+In JAX there is no lazy iterator machinery: XLA fuses the materializing
 expressions below into their consumers, which is what the Thrust iterators
 achieved at compile time.
 """

@@ -6,10 +6,10 @@ multiply.inl and the format-specialized SpMV in generic/multiply/spmv.h
 (DIA :49-119, ELL :124-180, COO :185-238, CSR-as-COO :243-270,
 HYB = ELL pass then COO pass :275-290).
 
-TPU-native design: every SpMV is a traceable jnp function with static shapes
-(usable inside jitted solver loops); the default implementations below lean
-on XLA's fusion, and the Pallas kernels in cusp_autotuned_tpu.kernels
-override them on the hot path via the autotuner.  The reference's KTT hook
+Design: every SpMV is a traceable jnp function with static shapes (usable
+inside jitted solver loops); the default implementations below lean on
+XLA's fusion, and the variants in cusp_autotuned_tpu.kernels override them
+on the hot path via the autotuner.  The reference's KTT hook
 (generic/multiply.inl:125-163 — route ELL/DIA multiplies through one tuning
 iteration when enabled) is reproduced: when autotuning is enabled and the
 operands are concrete (not tracers), multiply() routes through
@@ -22,15 +22,17 @@ import operator
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from cusp_autotuned_tpu import formats as F
 from cusp_autotuned_tpu.ops.segment import segment_sum, segment_reduce
 from cusp_autotuned_tpu.utils.exceptions import InvalidInputException
 
 # unrolled shifted-slice DIA path only up to this many diagonals; beyond it a
-# gather-based path keeps compiled code size bounded
-_DIA_UNROLL_LIMIT = 96
+# gather-based path keeps compiled code size bounded.  XLA fuses the
+# unrolled slices into one memory-bound loop on the GPU: at 159 diagonals
+# (the Protein stand-in, 201 MB) it ran at 2.9 TB/s on an H100, 1.18x the
+# gather path (PERF.md, "Kernel decisions on the H100")
+_DIA_UNROLL_LIMIT = 256
 
 
 def _is_concrete(*arrays) -> bool:

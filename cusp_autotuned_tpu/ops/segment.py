@@ -1,4 +1,4 @@
-"""Segmented reductions — the TPU replacement for the reference's
+"""Segmented reductions — the replacement for the reference's
 atomics/warp-scan segmented kernels (cusp/system/cuda/detail/multiply/
 coo_flat_spmv.h): deterministic, sort-order-based reductions that XLA can
 fuse, with an associative-scan path for arbitrary semiring reduce operators

@@ -1,7 +1,7 @@
 """Sorting building blocks (parity: cusp/sort.h:38-302 — counting_sort,
 counting_sort_by_key, sort_by_row, sort_by_row_and_column).
 
-TPU-native: all traceable via jax.lax.sort's multi-operand lexicographic
+All traceable via jax.lax.sort's multi-operand lexicographic
 sort — the deterministic replacement for the reference's thrust radix sorts.
 """
 

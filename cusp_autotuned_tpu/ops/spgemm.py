@@ -4,7 +4,7 @@ Parity target: the reference's COO ESC SpGEMM
 (cusp/system/cuda/detail/multiply/spgemm.h — expansion with workspace capping
 and slicing) and generalized_spgemm (cusp/detail/multiply.inl:114-151).
 
-TPU-native design: the expansion size is data-dependent, so planning runs on
+Design: the expansion size is data-dependent, so planning runs on
 the host (cheap integer work over row lengths), while the expansion, the
 lexicographic sort, and the duplicate compression run as one jitted XLA
 program with static shapes.  Atomics-free: duplicates are merged with a

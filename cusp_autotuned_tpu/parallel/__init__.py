@@ -1,9 +1,9 @@
 """Multi-chip execution over a jax.sharding.Mesh.
 
 The reference is single-GPU (SURVEY.md §2.6 — no distributed anything); this
-package is the TPU-native extension axis: row-sharded sparse operators over
-ICI with XLA collectives inserted by GSPMD, plus explicitly-psummed solver
-reductions.
+package is the extension axis: row-sharded sparse operators over a device
+mesh with XLA collectives inserted by GSPMD (NCCL on GPUs), plus
+explicitly-psummed solver reductions.
 """
 
 from cusp_autotuned_tpu.parallel.sharded import (
@@ -13,6 +13,4 @@ from cusp_autotuned_tpu.parallel.sharded import (
 )
 from cusp_autotuned_tpu.parallel.shard_map_spmv import (
     sharded_spmv_dia_shardmap, distributed_cg_shardmap, distributed_cg_halo,
-    sharded_spmv_binned_shardmap, distributed_cg_binned,
-    sharded_spmv_colsort_shardmap,
 )

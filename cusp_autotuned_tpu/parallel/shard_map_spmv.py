@@ -3,7 +3,7 @@
 Complement to parallel.sharded (GSPMD auto-partitioning): here the
 per-device program is written explicitly — each device owns a contiguous
 row block of the operator and computes its y block locally; solver dot
-products are explicit `psum`s over the ICI mesh axis.  This is the
+products are explicit `psum`s over the mesh axis.  This is the
 scaling-book recipe with the collectives placed by hand, and it documents
 exactly what rides the interconnect per iteration: 2 scalar all-reduces and
 one x all-gather equivalent (x is kept replicated, updated redundantly).
@@ -133,7 +133,8 @@ def distributed_cg_halo(A: F.DIA, b, mesh: Mesh, iterations: int = 25,
     """CG with HALO-EXCHANGE communication: each device holds a contiguous
     row block of the banded DIA operator, and per iteration exchanges only
     the halo edges (two `ppermute`s of max-offset-width slices) instead of
-    all-gathering the full vector — the per-iteration ICI traffic drops from
+    all-gathering the full vector — the per-iteration interconnect traffic
+    drops from
     O(n) to O(bandwidth).  Returns (x, final residual norm)."""
     if not isinstance(A, F.DIA):
         raise NotImplementedException("halo CG currently takes DIA")
@@ -198,289 +199,3 @@ def distributed_cg_halo(A: F.DIA, b, mesh: Mesh, iterations: int = 25,
     with mesh:
         x_pad, r_norm = jax.jit(solve)(data_sh, b_pad)
     return x_pad[:m], r_norm
-
-
-# -- distributed binned (unstructured) SpMV ------------------------------------
-
-def _pl_interpret() -> bool:
-    from cusp_autotuned_tpu.kernels.pallas_spmv import _interpret
-    return _interpret()
-
-def _binned_device_plans(A, n_dev: int, config):
-    """Plan the row-lane-binned kernel PER DEVICE row range: each device's
-    blocks write only its own rows (device-local by construction — the
-    halo-free analogue of the DIA row blocks above), padded to a common
-    block count so the per-device arrays stack into one sharded leading
-    axis.  Returns (stacked plan arrays, statics, global hub spill)."""
-    from cusp_autotuned_tpu.kernels import pallas_binned as PB
-    from cusp_autotuned_tpu.utils.padding import LANE
-
-    row, col, val, (m, n) = PB._host_coo(A)
-    B = int(config.get("block_entries", 4096))
-    Bs = B // LANE
-    C = int(config.get("col_window", 2048))
-    RW = int(config.get("row_window", 512))
-    hub_cap = min(int(config.get("hub_cap", Bs)), Bs)
-    m_dev = round_up(max(m, 1), 128 * n_dev) // n_dev
-
-    plans, spills = [], []
-    RS = RW // LANE + 1
-    CW = C // LANE
-    for d in range(n_dev):
-        lo, hi = d * m_dev, (d + 1) * m_dev
-        sel = (row >= lo) & (row < hi)
-        if not sel.any():
-            plans.append(None)
-            continue
-        vals, packs, rbs, cbs, spans, spill, RS, CW = PB.plan_binned(
-            row[sel] - lo, col[sel], val[sel], (m_dev, n), B, C, RW, hub_cap)
-        sr, sc, sv = spill
-        if sr.size:
-            spills.append((sr + lo, sc, sv))
-        plans.append(None if vals is None else (vals, packs, rbs, cbs, spans))
-
-    nbmax = max((p[0].shape[0] for p in plans if p is not None), default=1)
-    dt = np.dtype(A.dtype)
-    sv_ = np.zeros((n_dev, nbmax, Bs, LANE), np.float32)
-    sp_ = np.zeros((n_dev, nbmax, Bs, LANE), np.int32)
-    sr_ = np.zeros((n_dev, nbmax), np.int32)
-    sc_ = np.zeros((n_dev, nbmax), np.int32)
-    ss_ = np.ones((n_dev, nbmax), np.int32)
-    for d, p in enumerate(plans):
-        if p is None:
-            continue
-        vals, packs, rbs, cbs, spans = p
-        nb = vals.shape[0]
-        sv_[d, :nb] = vals
-        sp_[d, :nb] = packs
-        sr_[d, :nb] = rbs
-        sc_[d, :nb] = cbs
-        ss_[d, :nb] = spans
-    if spills:
-        hub = tuple(np.concatenate([s[i] for s in spills]) for i in range(3))
-    else:
-        hub = None
-    statics = dict(Bs=Bs, RS=RS, CW=CW, C=C, m=m, n=n, m_dev=m_dev,
-                   nbmax=nbmax, dtype=dt)
-    return (sv_.astype(dt), sp_, sr_, sc_, ss_), statics, hub
-
-
-def sharded_spmv_binned_shardmap(A, mesh: Mesh, config=None,
-                                 axis: str = "rows"):
-    """fn(x) = A @ x for an UNSTRUCTURED matrix with the binned Pallas
-    kernel sharded over the mesh: each device runs the kernel over its own
-    row-range plan, x replicated; hub-spill rows are corrected with a
-    replicated segment-sum.  Extends the distributed menu beyond banded
-    operators (roadmap: binned row-block plans are device-local)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    from cusp_autotuned_tpu.kernels.pallas_binned import _binned_kernel
-    from cusp_autotuned_tpu.utils.padding import LANE
-    import functools as ft
-
-    n_dev = mesh.devices.size
-    cfg = dict(config or {})
-    (sv_, sp_, sr_, sc_, ss_), st, hub = _binned_device_plans(A, n_dev, cfg)
-    Bs, RS, CW, C = st["Bs"], st["RS"], st["CW"], st["C"]
-    m, n, m_dev, nbmax = st["m"], st["n"], st["m_dev"], st["nbmax"]
-    dtype = st["dtype"]
-
-    n_pad = round_up(n, LANE) + C + LANE
-    x_rows = n_pad // LANE
-    md_pad = m_dev + RS * LANE
-    rows_sub = md_pad // LANE
-
-    kern = ft.partial(_binned_kernel, Bs=Bs, RS=RS, CW=CW, qshift=24)
-    call = pl.pallas_call(
-        kern,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=3, grid=(nbmax,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] + [
-                pl.BlockSpec((1, Bs, LANE), lambda g, *_: (g, 0, 0),
-                             memory_space=pltpu.VMEM)] * 2,
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM)),
-        out_shape=jax.ShapeDtypeStruct((rows_sub, LANE), dtype),
-        interpret=_pl_interpret())
-
-    sh = NamedSharding(mesh, P(axis))
-    dv = jax.device_put(jnp.asarray(sv_), sh)
-    dp = jax.device_put(jnp.asarray(sp_), sh)
-    dr = jax.device_put(jnp.asarray(sr_), sh)
-    dc = jax.device_put(jnp.asarray(sc_), sh)
-    ds = jax.device_put(jnp.asarray(ss_), sh)
-
-    @functools.partial(
-        jax.shard_map, mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P()),
-        out_specs=P(axis), check_vma=False)   # pallas out_shape carries no vma
-    def local_spmv(v, p, rb, cb, sp, x2):
-        y2 = call(rb[0], cb[0], sp[0], x2, v[0], p[0])
-        return y2.reshape(md_pad)[:m_dev]
-
-    if hub is not None:
-        hr = jnp.asarray(hub[0].astype(np.int32))
-        hc = jnp.asarray(hub[1].astype(np.int32))
-        hv = jnp.asarray(hub[2].astype(dtype))
-
-    def fn(x):
-        x2 = jnp.pad(x, (0, n_pad - n)).reshape(x_rows, LANE)
-        y = local_spmv(dv, dp, dr, dc, ds, x2)[:m]
-        if hub is not None:
-            y = y + jax.ops.segment_sum(hv * x[hc], hr, num_segments=m,
-                                        indices_are_sorted=True)
-        return y
-
-    return fn
-
-
-def distributed_cg_binned(A, b, mesh: Mesh, config=None, iterations: int = 25,
-                          axis: str = "rows", impl: str = "binned"):
-    """Fixed-iteration CG on an unstructured operator through the sharded
-    binned (or colsort, impl="colsort") kernel — square matrices; x kept
-    replicated via the SpMV's all-gathered output.  Returns
-    (x, final residual norm)."""
-    if A.shape[0] != A.shape[1]:
-        raise NotImplementedException("distributed CG needs a square matrix")
-    builder = (sharded_spmv_colsort_shardmap if impl == "colsort"
-               else sharded_spmv_binned_shardmap)
-    spmv = builder(A, mesh, config, axis=axis)
-    b = jnp.asarray(b)
-
-    @jax.jit
-    def solve(b):
-        def body(_, carry):
-            x, r, p, rz = carry
-            y = spmv(p)
-            alpha = rz / jnp.vdot(y, p)
-            x = x + alpha * p
-            r = r - alpha * y
-            rz_new = jnp.vdot(r, r)
-            p = r + (rz_new / rz) * p
-            return (x, r, p, rz_new)
-
-        carry = (jnp.zeros_like(b), b, b, jnp.vdot(b, b))
-        x, r, p, rz = jax.lax.fori_loop(0, iterations, body, carry)
-        return x, jnp.sqrt(jnp.real(rz))
-
-    with mesh:
-        return solve(b)
-
-
-# -- distributed colsort (scattered-pattern) SpMV ------------------------------
-
-def _colsort_device_plans(A, n_dev: int, config):
-    """Colsort main-pass plans PER DEVICE row range (buckets are row
-    windows, so a device-aligned range keeps every block device-local);
-    hub rows are corrected with a replicated segment-sum."""
-    from cusp_autotuned_tpu.kernels import pallas_colsort as PC
-    from cusp_autotuned_tpu.kernels import pallas_binned as PB
-    from cusp_autotuned_tpu.utils.padding import LANE
-
-    row, col, val, (m, n) = PB._host_coo(A)
-    B = int(config.get("block_entries", 4096))
-    Bs = B // LANE
-    RW = int(config.get("row_window", 2048))
-    W = max(1, -(-int(config.get("col_window", 16384)) // (LANE * LANE)))
-    CW = W * LANE
-    hub_cap = min(int(config.get("hub_cap", Bs)), Bs)
-    m_dev = round_up(max(m, 1), max(RW, 128) * n_dev) // n_dev
-
-    counts = np.bincount(row, minlength=m)
-    hub = counts[row] > hub_cap
-    hr, hc, hv = row[hub], col[hub], val[hub]
-    row, col, val = row[~hub], col[~hub], val[~hub]
-
-    plans = []
-    RS = RW // LANE + 1
-    for d in range(n_dev):
-        lo, hi = d * m_dev, (d + 1) * m_dev
-        sel = (row >= lo) & (row < hi)
-        if not sel.any():
-            plans.append(None)
-            continue
-        vals, chunks, pqs, rbs, cbs, RS = PC._plan_main(
-            row[sel] - lo, col[sel], val[sel], (m_dev, n), B, RW, CW)
-        plans.append((vals, chunks, pqs, rbs, cbs))
-
-    nbmax = max((p[0].shape[0] for p in plans if p is not None), default=1)
-    dt = np.dtype(A.dtype)
-    mv = np.zeros((n_dev, nbmax, Bs, LANE), np.float32)
-    mc = np.zeros((n_dev, nbmax, Bs, LANE), np.int32)
-    mp = np.zeros((n_dev, nbmax, Bs, LANE), np.int32)
-    mr = np.zeros((n_dev, nbmax), np.int32)
-    mcb = np.zeros((n_dev, nbmax), np.int32)
-    for d, p in enumerate(plans):
-        if p is None:
-            continue
-        vals, chunks, pqs, rbs, cbs = p
-        nb = vals.shape[0]
-        mv[d, :nb] = vals
-        mc[d, :nb] = chunks
-        mp[d, :nb] = pqs
-        mr[d, :nb] = rbs
-        mcb[d, :nb] = cbs
-    hubs = (hr, hc, hv) if hr.size else None
-    statics = dict(Bs=Bs, RS=RS, CW=CW, m=m, n=n, m_dev=m_dev, nbmax=nbmax,
-                   dtype=dt)
-    return (mv.astype(dt), mc, mp, mr, mcb), statics, hubs
-
-
-def sharded_spmv_colsort_shardmap(A, mesh: Mesh, config=None,
-                                  axis: str = "rows"):
-    """fn(x) = A @ x with the colsort main pass sharded via shard_map —
-    the scattered-pattern companion to sharded_spmv_binned_shardmap."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    from cusp_autotuned_tpu.kernels.pallas_colsort import _main_kernel
-    from cusp_autotuned_tpu.utils.padding import LANE
-    import functools as ft
-
-    n_dev = mesh.devices.size
-    cfg = dict(config or {})
-    (mv, mc, mp, mr, mcb), st, hubs = _colsort_device_plans(A, n_dev, cfg)
-    Bs, RS, CW = st["Bs"], st["RS"], st["CW"]
-    m, n, m_dev, nbmax = st["m"], st["n"], st["m_dev"], st["nbmax"]
-    dtype = st["dtype"]
-
-    n_pad = round_up(n, LANE) + (CW + 1) * LANE
-    x_rows = n_pad // LANE
-    md_pad = round_up(m_dev, LANE) + RS * LANE
-    rows_sub = md_pad // LANE
-
-    kern = ft.partial(_main_kernel, Bs=Bs, RS=RS, CW=CW)
-    call = pl.pallas_call(
-        kern,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2, grid=(nbmax,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] + [
-                pl.BlockSpec((1, Bs, LANE), lambda g, *_: (g, 0, 0),
-                             memory_space=pltpu.VMEM)] * 3,
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM)),
-        out_shape=jax.ShapeDtypeStruct((rows_sub, LANE), dtype),
-        interpret=_pl_interpret())
-
-    sh = NamedSharding(mesh, P(axis))
-    dv, dc, dp = (jax.device_put(jnp.asarray(a), sh) for a in (mv, mc, mp))
-    dr, dcb = (jax.device_put(jnp.asarray(a), sh) for a in (mr, mcb))
-
-    @functools.partial(
-        jax.shard_map, mesh=mesh,
-        in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P()),
-        out_specs=P(axis), check_vma=False)
-    def local_spmv(v, c, p, rb, cb, x2):
-        y2 = call(rb[0], cb[0], x2, v[0], c[0], p[0])
-        return y2.reshape(md_pad)[:m_dev]
-
-    if hubs is not None:
-        hr = jnp.asarray(hubs[0].astype(np.int32))
-        hc = jnp.asarray(hubs[1].astype(np.int32))
-        hv = jnp.asarray(hubs[2].astype(dtype))
-
-    def fn(x):
-        x2 = jnp.pad(x, (0, n_pad - n)).reshape(x_rows, LANE)
-        y = local_spmv(dv, dc, dp, dr, dcb, x2)[:m]
-        if hubs is not None:
-            y = y + jax.ops.segment_sum(hv * x[hc], hr, num_segments=m)
-        return y
-
-    return fn

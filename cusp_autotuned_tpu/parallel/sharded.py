@@ -4,7 +4,7 @@ Design (scaling-book recipe): pick a 1-D mesh over the 'rows' axis, place the
 row-blocked halves of the matrix on it (DIA data along its rows axis; ELL
 slot arrays along rows; COO/CSR by padded-nnz blocks), replicate x, and let
 GSPMD insert the collectives — dot products inside the solver loop become
-all-reduces over ICI.  The containers' static-metadata design means the SAME
+all-reduces over the interconnect.  The containers' static-metadata design means the SAME
 jitted spmv/solver code runs sharded: only the array placements change.
 """
 
@@ -117,7 +117,7 @@ def distribute_for_solve(A, mesh: Mesh, *vectors, aligned: bool = True):
 
 def distributed_cg(A, b, mesh: Mesh, iterations: int = 25):
     """Fixed-iteration CG with the matrix row-sharded over the mesh; the
-    per-iteration dot products become ICI all-reduces.  Returns (x, r_norm)."""
+    per-iteration dot products become all-reduces.  Returns (x, r_norm)."""
     from cusp_autotuned_tpu.ops.multiply import multiply
 
     A = shard_rows(A, mesh)
@@ -193,17 +193,15 @@ def distribute_multilevel(M, mesh: Mesh, cutoff: int = 2048):
     levels, the smoothers' vectors, and the coarse LU are replicated
     (coarse grids are latency-bound; replication beats sharding there).
 
-    TUNED operators shard too (round 3 replicated them): a via_dia
-    PlannedOperator rebuilds as a row-banded ShardedPlannedOperator
-    (each device holds only its band's diagonal data —
-    parallel/sharded_plans.py); scattered planned rails (binned /
-    colsort2 / routed) partition their block lists over the mesh with a
-    psum-combined apply (shard_planned_blocks, VERDICT r4 item 5); and
-    the factored R/P applies shard their structured-tentative weights
-    and inner A operator."""
+    TUNED operators shard too: a via_dia PlannedOperator rebuilds as a
+    row-banded ShardedPlannedOperator (each device holds only its band's
+    diagonal data — parallel/sharded_plans.py); a container-backed
+    planned rail shards its container; and the factored R/P applies
+    shard their structured-tentative weights and inner A operator."""
     import dataclasses
     from cusp_autotuned_tpu.parallel.sharded_plans import (
-        shard_planned_dia, shard_structured_tentative, _place_vec)
+        shard_planned_dia, shard_planned_operator,
+        shard_structured_tentative, _place_vec)
     from cusp_autotuned_tpu.operators import (
         PlannedOperator, FactoredProlongator, FactoredRestriction,
         StructuredTentative, StructuredTentativeT)
@@ -226,30 +224,20 @@ def distribute_multilevel(M, mesh: Mesh, cutoff: int = 2048):
             ShardedPlannedOperator)
         if isinstance(op, ShardedPlannedOperator):   # idempotent re-entry
             return op
-        if (isinstance(op, PlannedOperator) and op.impl == "via_dia"
+        if not (isinstance(op, PlannedOperator)
                 and lvl.A.num_rows >= cutoff):
-            try:
-                from cusp_autotuned_tpu.ops.convert import convert
-                # carry the tuned storage dtype over: a via_dia-bf16 plan
-                # must not silently revert to f32 data when banded
-                cfg = {}
-                d = op.arrays.get("data")
-                if d is not None and d.dtype == jnp.bfloat16:
-                    cfg["value_dtype"] = "bfloat16"
-                return shard_planned_dia(convert(lvl.A, "dia"), mesh,
-                                         config=cfg)
-            except Exception:  # noqa: BLE001 — sharding is best-effort
-                return repl_tree(op)
-        if (isinstance(op, PlannedOperator) and op.config is not None
-                and op.impl.split("_")[0] in ("binned", "colsort2", "routed")
-                and lvl.A.num_rows >= cutoff):
-            try:
-                from cusp_autotuned_tpu.parallel.sharded_plans import (
-                    shard_planned_blocks)
-                return shard_planned_blocks(lvl.A, mesh,
-                                            config=dict(op.config))
-            except Exception:  # noqa: BLE001 — sharding is best-effort
-                return repl_tree(op)
+            return repl_tree(op)
+        if op.impl == "via_dia":
+            from cusp_autotuned_tpu.ops.convert import convert
+            # carry the tuned storage dtype over: a via_dia-bf16 plan
+            # must not silently revert to f32 data when banded
+            leaves = jax.tree_util.tree_leaves(op.arrays)
+            cfg = ({"value_dtype": "bfloat16"}
+                   if leaves and leaves[0].dtype == jnp.bfloat16 else {})
+            return shard_planned_dia(convert(lvl.A, "dia"), mesh,
+                                     config=cfg)
+        if set(op.arrays) == {"A"}:
+            return shard_planned_operator(op, mesh)
         return repl_tree(op)
 
     def place_t(top):

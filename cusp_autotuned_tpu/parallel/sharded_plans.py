@@ -1,40 +1,36 @@
-"""Shard-partitionable PLANNED operators (VERDICT r3 item 4).
+"""Shard-partitionable PLANNED operators.
 
-The tuned rails' plans are row-blocked, so a plan partitions cleanly into
-per-device row bands: each device holds ONLY its band's planned arrays
-(memory scaling) and computes ONLY its band's output rows (compute
-scaling), with x replicated — the scaling-book 1-D row-sharded SpMV
-recipe applied to the tuned path instead of the untuned containers.
+The tuned rails' planned arrays are row-blocked, so a plan partitions
+cleanly into per-device row bands: each device holds ONLY its band's
+planned arrays (memory scaling) and computes ONLY its band's output rows
+(compute scaling), with x replicated — the scaling-book 1-D row-sharded
+SpMV recipe applied to the tuned path instead of the untuned containers.
 
-`shard_planned_dia` builds the banded form of the flagship via_dia rail:
-the DIA data (k diagonals x rows) splits along rows into equal bands,
-one band-sized Pallas kernel serves every device (uniform shapes), and a
+`shard_planned_dia` builds the banded form of the via_dia rail: the DIA
+data (k diagonals x rows) splits along rows into equal bands, and a
 `shard_map` apply slices each device's x window out of the replicated,
-pre-shifted x with `axis_index` — the same compile-time-shifted reads as
-the single-chip kernel (`kernels/pallas_dia.py:_dia_kernel`), zero
-collectives on the forward apply.
+pre-shifted x with `axis_index` and sums the k shifted products — the
+same shifted reads as the single-device slices rail
+(`ops.multiply.spmv_dia`), zero collectives on the forward apply.
+`shard_planned_operator` places the container of a container-backed rail
+(segsum, gather, slices, ...) over the mesh and lets GSPMD partition it.
 
 No reference analog: the reference is single-GPU (SURVEY §2.6); this is
-the distributed extension's tuned path, closing round 3's "tuned
-operators are replicated" gap (`parallel/sharded.py:195-197` then).
+the distributed extension's tuned path.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Any, Callable, Tuple
+from typing import Callable, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from cusp_autotuned_tpu.formats.base import register_matrix, static_field
 from cusp_autotuned_tpu.operators import register_operator_type
-from cusp_autotuned_tpu.utils.padding import LANE, round_up
 from cusp_autotuned_tpu.utils.exceptions import NotImplementedException
 
 
@@ -55,306 +51,91 @@ class ShardedPlannedOperator:
     axis: str = static_field(default="rows")
     shape: Tuple[int, int] = static_field(default=(0, 0))
     impl: str = static_field(default="sharded")
-    # "banded": each device computes a disjoint row band; outputs
-    # concatenate along the axis.  "sum": each device computes a PARTIAL
-    # full-length output from its slice of the plan (block-partitioned
-    # scattered rails) and the bodies psum over the axis — output
-    # replicated.
-    out_mode: str = static_field(default="banded")
-
     format = "sharded_planned_operator"
 
     def __call__(self, x):
         specs = jax.tree_util.tree_map(lambda _: P(self.axis), self.arrays)
-        summed = self.out_mode == "sum"
-        if summed:
-            def one(arrs, x2):
-                return jax.lax.psum(self.band_apply(arrs, x2), self.axis)
-        else:
-            one = self.band_apply
         if x.ndim == 2:
-            # block vectors (lobpcg, cg_m, SpMM rails at k up to 128):
-            # ONE shard_map dispatch — columns ride a vmap over the band
-            # kernel (Pallas batches by prepending a grid dim), so the
-            # k-column apply costs one executable instead of k dispatches
-            # (VERDICT r4 weak #6).  Contract: band_apply/x_prep/finish
-            # must be vmap-compatible.
+            # block vectors (lobpcg, cg_m, SpMM): ONE shard_map dispatch —
+            # columns ride a vmap over the band apply, so the k-column
+            # apply costs one executable instead of k dispatches.
+            # Contract: band_apply/x_prep/finish must be vmap-compatible.
             xstack = jax.vmap(self.x_prep, in_axes=1)(x)
             body = (lambda arrs, xs:
-                    jax.vmap(lambda x2: one(arrs, x2))(xs))
+                    jax.vmap(lambda x2: self.band_apply(arrs, x2))(xs))
             fn = jax.shard_map(body, mesh=self.mesh,
                                in_specs=(specs, P()),
-                               out_specs=(P() if summed
-                                          else P(None, self.axis, None)),
-                               check_vma=False)
+                               out_specs=P(None, self.axis))
             ys = fn(self.arrays, xstack)
             return jax.vmap(self.finish, in_axes=(0, 1), out_axes=1)(ys, x)
         if x.ndim != 1:
             raise NotImplementedException(
                 "sharded planned operators take 1-D/2-D x")
-        # check_vma=False: pallas_call inside the body can't declare its
-        # output's mesh-variance, and the specs above pin it explicitly
-        fn = jax.shard_map(one, mesh=self.mesh,
-                           in_specs=(specs, P()),
-                           out_specs=(P() if summed
-                                      else P(self.axis, None)),
-                           check_vma=False)
+        fn = jax.shard_map(self.band_apply, mesh=self.mesh,
+                           in_specs=(specs, P()), out_specs=P(self.axis))
         return self.finish(fn(self.arrays, self.x_prep(x)), x)
 
 
-def shard_planned_dia(D, mesh: Mesh, config=None, axis: str = "rows",
-                      interpret=None):
+def shard_planned_dia(D, mesh: Mesh, config=None, axis: str = "rows"):
     """Row-banded via_dia planned operator over `mesh`.
 
     D: a DIA container (use ops.convert on the level matrix).  Each
-    device holds its band of the (k, rows) diagonal data; the band kernel
-    is ONE pallas_call reused by every device (bands are padded to equal
-    size), and each device slices its x window from the replicated
-    pre-shifted x by mesh position."""
-    from cusp_autotuned_tpu.kernels.pallas_dia import (
-        _dia_kernel, MIN_BLOCK_ROWS, _auto_block_rows)
-    from cusp_autotuned_tpu.kernels.pallas_spmv import _interpret
+    device holds its band of the (k, rows) diagonal data (bands are padded
+    to equal size) and slices its x window from the replicated
+    pre-shifted x by mesh position.  config: `value_dtype` (bf16 storage
+    of the diagonals)."""
     from cusp_autotuned_tpu.utils.config import plan_value_dtype
 
-    if interpret is None:
-        interpret = _interpret()
-    cfg = dict(config or {})
-    store = plan_value_dtype(cfg, D.dtype)
+    store = plan_value_dtype(dict(config or {}), D.dtype)
     offsets = [int(o) for o in np.asarray(D.offsets)]
     k = len(offsets)
     m, n = D.shape
     nd = int(mesh.devices.size)
-
-    band = round_up(-(-int(D.rows_padded) // nd), MIN_BLOCK_ROWS)
+    band = -(-int(D.rows_padded) // nd)
     mp = band * nd
-    sub_band = band // LANE
-    # largest power-of-two block that divides the band and fits the
-    # double-buffer budget (same rule as the single-chip builder)
-    block_rows = MIN_BLOCK_ROWS
-    auto = int(cfg.get("block_rows", 0)) or \
-        _auto_block_rows(k, mp, store.itemsize)
-    while block_rows * 2 <= min(band, auto) and band % (block_rows * 2) == 0:
-        block_rows *= 2
-    sub_block = block_rows // LANE
-
     left = -min(0, min(offsets))
-    max_q = (max(offsets) + left) // LANE + 2
-    x_rows_band = sub_band + max_q + left // LANE + 2
-    x_rows_glob = max((nd - 1) * sub_band + x_rows_band,
-                      (n + left) // LANE + 2)
+    x_band = band + left + max(0, max(offsets))
+    x_glob = max((nd - 1) * band + x_band, n + left)
 
     data = jnp.asarray(D.data)
     if data.shape[1] < mp:
         data = jnp.pad(data, ((0, 0), (0, mp - data.shape[1])))
-    data4 = data.reshape(k, nd, sub_band, LANE).transpose(1, 0, 2, 3) \
+    data3 = data[:, :mp].reshape(k, nd, band).transpose(1, 0, 2) \
         .astype(store)
 
-    kernel = functools.partial(_dia_kernel, offsets=offsets, left=left,
-                               sub_block=sub_block)
-    call = pl.pallas_call(
-        kernel,
-        grid=(band // block_rows,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.VMEM),   # band x window
-            pl.BlockSpec((k, sub_block, LANE), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((sub_block, LANE), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((sub_band, LANE), D.dtype),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * k * band,
-            bytes_accessed=(k * band * store.itemsize
-                            + (x_rows_band * LANE + band)
-                            * D.dtype.itemsize),
-            transcendentals=0),
-        interpret=interpret,
-    )
-
     def x_prep(x):
-        return jnp.pad(x, (left, x_rows_glob * LANE - left - n)) \
-            .reshape(x_rows_glob, LANE)
+        return jnp.pad(x, (left, x_glob - left - n))
 
-    def band_apply(arrs, x2):
+    def band_apply(arrs, xp):
         i = jax.lax.axis_index(axis)
-        xb = jax.lax.dynamic_slice_in_dim(x2, i * sub_band, x_rows_band, 0)
-        return call(xb, arrs["data"][0])
+        xb = jax.lax.dynamic_slice_in_dim(xp, i * band, x_band, 0)
+        dat = arrs["data"][0]
+        acc = None
+        for d, off in enumerate(offsets):
+            term = dat[d] * xb[left + off: left + off + band]
+            acc = term if acc is None else acc + term
+        return acc
 
     def finish(y, _x):
-        return y.reshape(mp)[:m]
+        return y[:m]
 
     sharded = NamedSharding(mesh, P(axis))
-    arrays = {"data": jax.device_put(data4, sharded)}
+    arrays = {"data": jax.device_put(data3, sharded)}
     return ShardedPlannedOperator(
         arrays=arrays, x_prep=x_prep, band_apply=band_apply, finish=finish,
         mesh=mesh, axis=axis, shape=(m, n), impl="via_dia_sharded")
 
 
-# scattered-rail plan partitioning (VERDICT r4 item 5) ----------------------
-
-# per-impl planned-array roles: block-list arrays (leading dim = block
-# count) slice contiguously per device; value-carrying arrays zero their
-# padding; spill triplets partition by entry; masks recompute per device
-_MAIN_BLOCK_KEYS = {
-    "binned": ("vals", "packs", "rbs", "cbs", "spans"),
-    "colsort2": ("v2v", "v2c", "v2p", "v2s", "v2vb", "v2cb"),
-    "routed": ("rv", "rg1", "rg2", "rpq", "rvb", "rcb"),
-}
-_TAIL_BLOCK_KEYS = ("v2v", "v2c", "v2p", "v2s", "v2vb", "v2cb")
-_ENTRY_KEYS = ("srow", "scol", "sval")
-_VALUE_KEYS = {"vals", "v2v", "rv", "sval"}
-
-
-def _slice_pad(a, i, nd, zero_pad):
-    """Contiguous per-device slice of a block/entry list, padded to the
-    uniform per-device length.  Padding EDGE-REPLICATES the last row
-    (metadata stays a valid re-visit of the same window — no spurious
-    first-visit zeroing) and zeroes value arrays (so padded slots add 0).
-    Devices past the end of the list replicate row 0 zero-valued."""
-    a = np.asarray(a)
-    n0 = a.shape[0]
-    per = max(1, -(-n0 // nd))
-    lo = min(i * per, n0)
-    hi = min(lo + per, n0)
-    sl = a[lo:hi]
-    if sl.shape[0] == 0:
-        sl = a[:1] if n0 else np.zeros((1,) + a.shape[1:], a.dtype)
-        sl = np.zeros_like(sl) if zero_pad else sl
-        return np.broadcast_to(sl, (per,) + a.shape[1:]).copy()
-    if sl.shape[0] < per:
-        pad = np.broadcast_to(sl[-1:], (per - sl.shape[0],) + a.shape[1:])
-        pad = np.zeros_like(pad) if zero_pad else pad
-        sl = np.concatenate([sl, pad], axis=0)
-    elif zero_pad and hi == n0 and lo < n0:
-        sl = sl.copy()
-    return sl
-
-
-def shard_planned_blocks(A, mesh: Mesh, config=None, axis: str = "rows",
-                         validate: bool = True):
-    """Partition a scattered-rail plan (binned / colsort2 / routed) over
-    `mesh`: ONE global plan is built (identical kernel statics on every
-    device), its block list splits into contiguous per-device slices
-    (memory + compute scaling of the dominant plan bytes), each device
-    computes a PARTIAL output from its blocks, and a psum over the mesh
-    axis combines them — blocks already carry their output-window tags
-    (rbs / vbs), so any contiguous partition is correct under the rails'
-    first-visit-zero / zero-at-start accumulation semantics.
-
-    The rails' applies derive their grid length from the arrays' block
-    count (kernels/pallas_{binned,colsort2,routed}.py make_call(nbv)), so
-    the global apply serves every padded slice unchanged.  validate=True
-    checks one random SpMV against the host oracle at build time.
-
-    No reference analog (the reference is single-GPU, SURVEY §2.6); this
-    closes the distributed extension's last replicated tuned path."""
-    from cusp_autotuned_tpu.kernels.variants import build_spmv
-    from cusp_autotuned_tpu.kernels.streaming import band_mask
-
-    cfg = dict(config or {})
-    impl = cfg.get("impl")
-    if impl not in _MAIN_BLOCK_KEYS:
+def shard_planned_operator(op, mesh: Mesh):
+    """A container-backed PlannedOperator (arrays == {"A": container})
+    with its container row-sharded over `mesh` (parallel.sharded
+    .distribute_for_solve); GSPMD partitions the apply."""
+    from cusp_autotuned_tpu.parallel.sharded import distribute_for_solve
+    if set(op.arrays) != {"A"}:
         raise NotImplementedException(
-            f"shard_planned_blocks supports binned/colsort2/routed, "
-            f"got {impl!r}")
-    if impl == "binned":
-        cfg["stream_x"] = 1     # the streamed builder's apply is nbv-aware
-    cfg.setdefault("plan_budget_bytes", 1 << 33)
-    fn = build_spmv(A, cfg)
-    if not hasattr(fn, "planned_arrays"):
-        raise NotImplementedException("builder exposed no planned arrays")
-    stats = getattr(fn, "plan_stats", {}) or {}
-    g_arrays = fn.planned_arrays
-    nd = int(mesh.devices.size)
-    m, n = A.shape
-    nb_main = int(stats.get("nb", 0))
-    main_keys = _MAIN_BLOCK_KEYS[impl]
-    tail_keys = _TAIL_BLOCK_KEYS if impl == "routed" else ()
-
-    per_dev = []
-    for i in range(nd):
-        d = {}
-        for k, v in g_arrays.items():
-            npv = np.asarray(v)
-            if k in main_keys and npv.shape[:1] == (nb_main,):
-                d[k] = _slice_pad(npv, i, nd, k in _VALUE_KEYS)
-            elif k in tail_keys:
-                d[k] = _slice_pad(npv, i, nd, k in _VALUE_KEYS)
-            elif k in _ENTRY_KEYS:
-                sl = _slice_pad(npv, i, nd, k in _VALUE_KEYS)
-                if k == "srow":
-                    # padded spill rows point past the output (dropped by
-                    # the segment sum) and keep the sorted order
-                    per = sl.shape[0]
-                    n0 = npv.shape[0]
-                    lo = min(i * per, n0)
-                    real = max(0, min(per, n0 - lo))
-                    sl = sl.copy()
-                    sl[real:] = m
-                d[k] = sl
-            elif k in ("row_mask", "rwm", "v2wm", "v2hub"):
-                continue    # recomputed / replicated below
-            else:
-                d[k] = npv
-        # per-device visited-window masks: a window this device never
-        # writes holds garbage in its pallas output and must fold as zero
-        if "row_mask" in g_arrays:        # binned streamed
-            RW = int(stats["RW"])
-            n_win = -(-max(m, 1) // RW)
-            touched = np.zeros(n_win, bool)
-            touched[np.asarray(d["rbs"]).astype(np.int64)] = True
-            d["row_mask"] = np.repeat(touched, RW)[:m] \
-                & np.asarray(g_arrays["row_mask"])
-        if "rwm" in g_arrays:             # routed streamed main
-            RSp = int(stats["RSp"])
-            vrs = np.asarray(g_arrays["rwm"]).shape[0]
-            d["rwm"] = np.asarray(band_mask(
-                np.asarray(d["rvb"]), vrs // RSp, RSp,
-                np.asarray(g_arrays["rwm"]).dtype))
-        if "v2wm" in g_arrays:            # colsort2 streamed (main or tail)
-            ts = stats.get("tail_stats") or {}
-            RSp = int(ts["RSp"] if impl == "routed" else stats["RSp"])
-            vrs = np.asarray(g_arrays["v2wm"]).shape[0]
-            d["v2wm"] = np.asarray(band_mask(
-                np.asarray(d["v2vb"]), vrs // RSp, RSp,
-                np.asarray(g_arrays["v2wm"]).dtype))
-        if "v2hub" in g_arrays:
-            d["v2hub"] = np.asarray(g_arrays["v2hub"])   # small; replicated
-        per_dev.append(d)
-
-    stacked = {k: np.stack([d[k] for d in per_dev])
-               for k in per_dev[0]}
-    sharded = NamedSharding(mesh, P(axis))
-    arrays = {k: jax.device_put(jnp.asarray(v), sharded)
-              for k, v in stacked.items()}
-
-    def x_prep(x):
-        return jnp.asarray(x)
-
-    def band_apply(arrs, x1):
-        local = {k: v[0] for k, v in arrs.items()}
-        return fn.apply(local, x1)
-
-    def finish(y, _x):
-        return y
-
-    op = ShardedPlannedOperator(
-        arrays=arrays, x_prep=x_prep, band_apply=band_apply, finish=finish,
-        mesh=mesh, axis=axis, shape=(m, n),
-        impl=f"{impl}_sharded", out_mode="sum")
-
-    if validate:
-        from cusp_autotuned_tpu.backend.reference import reference_spmv
-        rng = np.random.RandomState(0)
-        xt = rng.randn(n).astype(np.dtype(A.dtype))
-        got = np.asarray(op(jnp.asarray(xt)), np.float64)
-        want = np.asarray(reference_spmv(A, xt), np.float64)
-        scale = np.linalg.norm(want) or 1.0
-        if np.linalg.norm(got - want) / scale > 5e-4:
-            raise NotImplementedException(
-                "sharded plan failed oracle validation "
-                f"(rel err {np.linalg.norm(got - want) / scale:.2e})")
-    return op
+            f"{op.impl!r} plans carry no container to shard")
+    (A,) = distribute_for_solve(op.arrays["A"], mesh)
+    return dataclasses.replace(op, arrays={"A": A})
 
 
 def _place_vec(v, mesh: Mesh, axis: str):

@@ -8,7 +8,6 @@ Supports a single candidate vector (the reference's default B = ones)."""
 from __future__ import annotations
 
 import numpy as np
-import jax.numpy as jnp
 
 from cusp_autotuned_tpu.formats.coo import coo_matrix
 from cusp_autotuned_tpu.ops.convert import convert
@@ -38,5 +37,5 @@ def fit_candidates(aggregates, B):
     T = coo_matrix(rows.astype(np.int32), cols.astype(np.int32),
                    vals.astype(out_dt), (n, n_agg), sort=True)
     # B_coarse stays HOST-side: it feeds the next level's strength /
-    # fit_candidates only (setup-time planning must not ride the relay)
+    # fit_candidates only (setup-time planning stays on the host)
     return convert(T, "csr"), norms.astype(out_dt)

@@ -4,7 +4,7 @@ Parity: cusp::relaxation::gauss_seidel — setup computes a vertex coloring and
 groups rows by color (relaxation/detail/gauss_seidel.inl:40-53); each sweep
 visits color classes in order, updating all rows of a class in parallel
 (rows of one color are independent, so the batched update is exact GS — the
-TPU replacement for the warp-per-row color-class kernel,
+replacement for the warp-per-row color-class kernel,
 cuda/detail/relaxation/gauss_seidel.h:38-80).
 """
 

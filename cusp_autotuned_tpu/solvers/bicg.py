@@ -65,8 +65,8 @@ def bicg(A, b, x0=None, monitor: Monitor | None = None, M=None,
     dual recurrence needs (bicg.inl:42-157) is materialized at setup — the
     same move as the single-chip path — and BOTH A and A^T are row-sharded
     over the mesh (row-aligned for COO/CSR), so each operator's segment
-    reductions stay shard-local and the dot products become ICI
-    all-reduces under GSPMD."""
+    reductions stay shard-local and the dot products become all-reduces
+    under GSPMD."""
     b = jnp.asarray(b)
     if monitor is None:
         monitor = default_monitor(b)

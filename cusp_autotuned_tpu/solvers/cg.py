@@ -4,7 +4,7 @@ Parity target: cusp::krylov::cg (cusp/krylov/detail/cg.inl:41-107) with the
 same default ladder — no monitor → default monitor (500 iters, rtol 1e-5), no
 M → identity (cg.inl:151-180).
 
-TPU-native: the whole solve is one jitted lax.while_loop; the SpMV, the
+Design: the whole solve is one jitted lax.while_loop; the SpMV, the
 preconditioner apply, and the BLAS-1 updates fuse into a single XLA program
 per iteration — no host round-trips until the loop exits.
 """
@@ -64,9 +64,9 @@ def cg(A, b, x0=None, monitor: Monitor | None = None, M=None, mesh=None):
 
     mesh: a jax.sharding.Mesh distributes the solve — A is row-sharded over
     the mesh (row-aligned placement for COO/CSR), b/x0 replicated, and the
-    same jitted loop runs under GSPMD with the dot products becoming ICI
+    same jitted loop runs under GSPMD with the dot products becoming
     all-reduces.  The reference has no distributed path (SURVEY §2.6); this
-    is the TPU-native extension."""
+    is the extension."""
     b = jnp.asarray(b)
     if monitor is None:
         monitor = default_monitor(b)

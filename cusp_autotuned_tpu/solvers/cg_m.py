@@ -5,8 +5,8 @@ Parity target: cusp::krylov::cg_m (cusp/krylov/detail/cg_m.inl — the
 Jegerlehner CG-M recurrences: shifted zeta/beta/alpha transfer functions
 KERNEL_ZB/KERNEL_A/KERNEL_XP, x0 = 0 required, no preconditioner).
 
-TPU-native: all shifts update in one (n_sigma, n) batched pass per iteration
-— the per-shift axpys become a single rank-2 VPU op — inside one jitted
+Design: all shifts update in one (n_sigma, n) batched pass per iteration
+— the per-shift axpys become a single rank-2 op — inside one jitted
 lax.while_loop.
 """
 

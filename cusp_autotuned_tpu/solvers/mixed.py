@@ -1,12 +1,12 @@
 """Mixed-precision iterative refinement (defect correction).
 
-TPU-native extension with no reference analogue (the idiom is LAPACK's
+An extension with no reference analogue (the idiom is LAPACK's
 dsgesv-style mixed-precision refinement, applied to Krylov solves): the
 inner solver runs on a `value_dtype='bfloat16'` planned operator — the
-matrix entry stream, which dominates HBM traffic on the bandwidth-bound
-SpMV path, is stored at half width (bf16 is the MXU's native input type)
-— while a full-precision outer loop restores f32-level accuracy through
-classic defect correction:
+matrix entry stream, which dominates device-memory traffic on the
+bandwidth-bound SpMV path, is stored at half width — while a
+full-precision outer loop restores f32-level accuracy through classic
+defect correction:
 
     r_k = b - A_hi x_k            (full-precision residual)
     d_k = solve_lo(A_lo, r_k)     (bf16-operator inner Krylov solve,

@@ -6,7 +6,7 @@ tests ||r|| <= absolute_tolerance + relative_tolerance * ||b||; rate
 statistics immediate/geometric/average_rate (monitor.inl:223-251); verbose
 iteration printing.
 
-TPU-native split: MonitorState is a pytree carried through lax.while_loop
+Split: MonitorState is a pytree carried through lax.while_loop
 solver bodies (residual history preallocated to iteration_limit+1), and
 Monitor is the host-facing object with the reference's full API, usable both
 eagerly (user-written loops) and as the configuration/result wrapper around

@@ -3,5 +3,5 @@ from cusp_autotuned_tpu.utils.exceptions import (
     NotImplementedException, InvalidInputException, RuntimeException,
 )
 from cusp_autotuned_tpu.utils.padding import (
-    LANE, SUBLANE, round_up, pad_to, pad_axis_to,
+    LANE, round_up, pad_to, pad_axis_to,
 )

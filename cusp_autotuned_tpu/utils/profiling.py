@@ -2,9 +2,10 @@
 path (main.cu:560-663: measured dram_read_bytes vs an analytic
 min_read_bytes model).
 
-TPU hardware counters aren't exposed here; instead the analytic byte model
-is compared against a same-process measured stream bandwidth, and
-jax.profiler traces can be captured for deep dives.
+Hardware counters aren't exposed here; instead the analytic byte model is
+compared against a same-process measured stream bandwidth, the time is
+the device time of a profiler trace, and jax.profiler traces can be
+captured for deep dives.
 """
 
 from __future__ import annotations
@@ -12,7 +13,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
-import numpy as np
 
 
 @dataclasses.dataclass
@@ -33,8 +33,7 @@ class RooflineReport:
 
 def min_read_bytes(A) -> int:
     """Analytic minimum HBM traffic for one SpMV (main.cu:560-580 analogue,
-    without the 32-byte-transaction quantization — TPU DMA is tile-granular
-    and our arrays are lane-aligned)."""
+    without the 32-byte-transaction quantization)."""
     import sys
     sys.path.insert(0, ".")
     from benchmarks.bytes_per_spmv import bytes_per_spmv
@@ -43,12 +42,12 @@ def min_read_bytes(A) -> int:
 
 def profile_spmv(A, x, config=None) -> RooflineReport:
     import jax
-    from benchmarks.harness import time_fn, stream_bandwidth_gbps
+    from benchmarks.harness import time_fn_device, stream_bandwidth_gbps
     from cusp_autotuned_tpu.kernels.variants import build_spmv, default_config
 
     fn = jax.jit(build_spmv(A, config or default_config(A)))
     x = jax.numpy.asarray(x)
-    t = time_fn(fn, x)
+    t, _ = time_fn_device(fn, x)
     model = min_read_bytes(A)
     stream = stream_bandwidth_gbps()
     return RooflineReport(
@@ -59,33 +58,6 @@ def profile_spmv(A, x, config=None) -> RooflineReport:
         roofline_fraction=(model / t / 1e9) / stream,
         gflops=2 * A.nnz / t / 1e9,
     )
-
-
-def kernel_speed_of_light(fn) -> dict | None:
-    """Analytic speed-of-light for a built scattered-rail kernel, from its
-    plan_stats: the kernel class is XLU-bound (docs/roadmap.md), so the
-    bound is tile-take passes x ~136 ns per 128x128 tile.  Returns
-    {passes, pred_us, fill, ...} or None when fn carries no plan.
-    (Class analogue of min_read_bytes for the take-pass-bound rails;
-    benchmarks/plan_model.py uses the same pricing to rank plans
-    host-side.)"""
-    st = getattr(fn, "plan_stats", None)
-    if not st:
-        return None
-    import sys
-    sys.path.insert(0, ".")
-    try:
-        from benchmarks.plan_model import tile_passes
-        passes = tile_passes(st)
-    except (ImportError, ValueError, KeyError):
-        return None
-    return {
-        "impl": st["impl"],
-        "tile_passes_per_rhs": passes,
-        "pred_us_per_rhs": round(passes * 0.136, 1),
-        "fill": st.get("fill"),
-        "nb": st.get("nb"),
-    }
 
 
 @contextlib.contextmanager

@@ -23,15 +23,14 @@ def main():
     print(f"AMG-CG: {mon_amg.iteration_count()} iterations; "
           f"plain CG: {mon_cg.iteration_count()}")
 
-    # every level's A/R/P can run through tuned planned kernels (and the
-    # CG operator too) — on TPU this is ~5x per iteration at 250k unknowns
-    cfg = {"impl": "binned", "block_entries": 4096, "col_window": 2048,
-           "row_window": 768}
-    from cusp_autotuned_tpu.operators import planned_operator
+    # every level's A/R/P can run through planned kernels (and the CG
+    # operator too): spmv_config={} takes the cost model's pick per level
+    # operator, tuned_operator the tuner's pick for A
+    from cusp_autotuned_tpu.autotune import tuned_operator
     Af = gallery.poisson5pt(150, 150, format="csr", dtype=np.float32)
-    Mt = precond.smoothed_aggregation(Af, spmv_config=cfg)
+    Mt = precond.smoothed_aggregation(Af, spmv_config={})
     bt = np.asarray(b, np.float32)
-    xt, mont = solvers.cg(planned_operator(Af, cfg), bt, M=Mt,
+    xt, mont = solvers.cg(tuned_operator(Af), bt, M=Mt,
                           monitor=solvers.Monitor(bt, 100, 1e-5))
     print(f"fully tuned AMG-CG: {mont.iteration_count()} iterations, "
           f"converged={mont.converged()}")

@@ -1,5 +1,5 @@
-"""Multi-chip row-sharded solve over a device mesh — the TPU-native
-extension beyond the single-GPU reference (run with real chips, or
+"""Multi-device row-sharded solve over a device mesh — the extension
+beyond the single-GPU reference (run on several GPUs, or rehearse with
 JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8)."""
 
 import os
@@ -29,7 +29,7 @@ def main():
           f"{float(r2):.3e} (shard_map)")
 
     # the public solver API distributes with a mesh argument: the monitored
-    # while_loop runs under GSPMD, dot products become ICI all-reduces
+    # while_loop runs under GSPMD, dot products become all-reduces
     from cusp_autotuned_tpu import solvers
     x3, mon = solvers.cg(A, b, mesh=mesh)
     print(f"public cg(mesh=): converged={mon.converged()} in "
@@ -69,29 +69,24 @@ def main():
           f"{mon7.iteration_count()} iterations "
           f"(fine Aop = {getattr(lv0.Aop, 'impl', '?')})")
 
-    # SCATTERED planned rails shard too (round 5): one global
-    # binned/colsort2/routed plan block-partitions over the mesh —
-    # contiguous per-device slices, partial outputs psum-combined — so a
-    # tuned scattered-pattern operator memory-scales instead of
-    # replicating
+    # a container-rail tuned operator shards its container: tuned_operator
+    # (mesh=) never falls back to a single-device operator
     import scipy.sparse as sp
+    import jax.numpy as jnp
+    from cusp_autotuned_tpu.autotune import tuned_operator
     from cusp_autotuned_tpu.backend.reference import (from_scipy,
                                                       reference_spmv)
-    from cusp_autotuned_tpu.parallel.sharded_plans import (
-        shard_planned_blocks)
     rng = np.random.RandomState(0)
     Ssc = (sp.random(2000, 2000, density=2e-3, random_state=rng,
                      dtype=np.float32)
            + sp.eye(2000, dtype=np.float32)).tocsr()
     Asc = from_scipy(Ssc, "csr")
-    op = shard_planned_blocks(Asc, mesh,
-                              {"impl": "colsort2", "block_entries": 2048})
-    import jax.numpy as jnp
+    op = tuned_operator(Asc, mesh=mesh)
     xs = rng.randn(2000).astype(np.float32)
-    err = float(np.abs(np.asarray(op(jnp.asarray(xs)))
-                       - reference_spmv(Asc, xs)).max())
-    print(f"sharded scattered plan ({op.impl}): max |err| = {err:.2e}")
-
+    with mesh:
+        ys = np.asarray(op(jnp.asarray(xs)))
+    err = float(np.abs(ys - reference_spmv(Asc, xs)).max())
+    print(f"sharded scattered operator ({op.impl}): max |err| = {err:.2e}")
 
 if __name__ == "__main__":
     main()

@@ -1,16 +1,14 @@
 """The unstructured SpMV strategy menu and the benchmark suite.
 
 The tuner picks among kernel STRATEGIES per matrix (the fork's per-format
-tuning spaces, cusp/system/cuda/ktt/*_multiply.h, reborn as TPU kernels):
-  - segsum      XLA segment-sum (the safe default)
-  - binned      row-lane-binned Pallas kernel: scatter-free, for row-local
-                patterns (stencils, FEM, banded)
-  - colsort     column-lane-binned Pallas kernel: gather-light with a
-                plan-time permutation scatter + hub pass, for scattered
-                patterns (power-law graphs, rectangular LP)
-  - via_dia     re-layout as DIA and run the flagship diagonal kernel
-  - onehot      windowed one-hot MXU kernel
-Run me with PYTHONPATH pointing at the repo root.
+tuning spaces, cusp/system/cuda/ktt/*_multiply.h, rebuilt in JAX):
+  - segsum      XLA gather + sorted segment-sum (the safe default)
+  - bcoo        the vendor library (jax.experimental.sparse BCOO)
+  - via_dia     re-layout as DIA and run the diagonal kernel (banded
+                patterns: stencils, FEM)
+  - rcm_dia     RCM-reorder to shrink the bandwidth, then via_dia
+  - via_dense   densify and run a GEMV (dense-enough patterns)
+Strategies whose guard rejects a pattern are skipped, as in the tuner.
 """
 
 import os
@@ -26,6 +24,7 @@ from cusp_autotuned_tpu import gallery
 from cusp_autotuned_tpu.backend.reference import from_scipy, reference_spmv
 from cusp_autotuned_tpu.kernels.variants import build_spmv
 from cusp_autotuned_tpu.gallery.suite import williams_suite
+from cusp_autotuned_tpu.utils.exceptions import FormatConversionException
 
 # a banded FEM-like matrix and a power-law graph from the suite stand-ins
 suite = williams_suite(scale=0.05)
@@ -34,21 +33,13 @@ for name in ("FEM/Cantilever", "Webbase"):
     A = from_scipy(S.tocoo().astype(np.float32), "csr")
     x = np.linspace(-1, 1, A.num_cols).astype(np.float32)
     ref = reference_spmv(A, x)
-    for impl, cfg in [
-        ("segsum", {"impl": "segsum"}),
-        ("binned", {"impl": "binned", "block_entries": 2048,
-                    "col_window": 2048, "row_window": 512}),
-        ("colsort", {"impl": "colsort", "block_entries": 2048,
-                     "col_window": 16384, "row_window": 2048}),
-        ("colsort2", {"impl": "colsort2", "vrow_planes": 1,
-                      "mix_chunks": 4}),
-        ("routed", {"impl": "routed"}),
-    ]:
+    for impl in ("segsum", "bcoo", "via_dia", "rcm_dia", "via_dense"):
+        cfg = {"impl": impl}
         try:
             y = np.asarray(jax.jit(build_spmv(A, cfg))(jnp.asarray(x)))
             err = np.linalg.norm(y - ref) / (np.linalg.norm(ref) or 1.0)
             print(f"{name:16s} {impl:8s} rel err {err:.2e}")
-        except Exception as e:  # skippable strategies are part of the design
+        except FormatConversionException as e:  # a guard-raised skip
             print(f"{name:16s} {impl:8s} skipped ({type(e).__name__})")
 
 print("\nfull sweep: python benchmarks/spmv_suite.py --scale 1.0")

@@ -4,7 +4,7 @@
 // (cusp/precond/detail/ainv.inl: std::map-row outer-product (bi)conjugation
 // with drop_tolerance / per-row nnz caps / lin_dropping).  The algorithm is
 // inherently sequential, so it belongs in native host code; the resulting
-// factors are applied on the TPU as CSR SpMVs.
+// factors are applied on the device as CSR SpMVs.
 //
 // C ABI, called from Python via ctypes.
 

@@ -3,7 +3,7 @@
 // Rebuild of symmetric RCM + pseudo-peripheral vertex finding
 // (cusp/graph/symmetric_rcm.h, pseudo_peripheral.h).  BFS-based sequential
 // algorithms run on the host; the resulting permutations are static data
-// consumed by the TPU kernels (e.g. the autotuner's rcm_dia move).
+// consumed by the device kernels (e.g. the autotuner's rcm_dia move).
 //
 // C ABI, called from Python via ctypes.
 

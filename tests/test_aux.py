@@ -56,28 +56,22 @@ def test_profile_spmv_report():
 
 def test_config_module():
     """Central config (SURVEY §5 config/flag system): env-backed fields with
-    programmatic overrides that the kernel builders honor."""
+    programmatic overrides that the kernel code honors."""
     from cusp_autotuned_tpu.utils.config import get_config, configure
+    from cusp_autotuned_tpu import gallery
+    from cusp_autotuned_tpu.autotune.space import configurations_for
     cfg = get_config()
-    old = cfg.plan_budget_bytes
+    old = cfg.search_low_precision
+    A = gallery.poisson9pt(30, 30, format="csr", dtype=np.float32)
     try:
-        configure(plan_budget_bytes=1024)   # absurdly small: plans rejected
-        from cusp_autotuned_tpu import gallery
-        from cusp_autotuned_tpu.kernels.pallas_binned import build_binned
-        from cusp_autotuned_tpu.utils.exceptions import NotImplementedException
-        A = gallery.poisson9pt(30, 30, format="csr", dtype=np.float32)
-        import pytest as _pytest
-        with _pytest.raises(NotImplementedException):
-            build_binned(A, {"block_entries": 2048, "col_window": 1024,
-                             "row_window": 256}, interpret=True)
+        configure(search_low_precision=True)   # the walk gains bf16 configs
+        assert any(c.get("value_dtype") == "bfloat16"
+                   for c in configurations_for(A))
+        configure(search_low_precision=False)
+        assert not any(c.get("value_dtype") == "bfloat16"
+                       for c in configurations_for(A))
     finally:
-        configure(plan_budget_bytes=old)
+        configure(search_low_precision=old)
     import pytest as _pytest
     with _pytest.raises(AttributeError):
         configure(not_a_field=1)
-
-
-def test_plan_budget_override():
-    from cusp_autotuned_tpu.utils.config import plan_budget, get_config
-    assert plan_budget({}) == get_config().plan_budget_bytes
-    assert plan_budget({"plan_budget_bytes": 123}) == 123

@@ -1,72 +1,66 @@
-"""Device-model calibration (autotune.calibrate) — VERDICT r3 item 7.
+"""Device-model calibration (autotune.calibrate) and the cost model's
+per-device table.
 
 The analytic cost model's constants must come from a measurement on the
-CURRENT device when one exists, with the one-session literals demoted to
-fallback.  On the CPU test backend the measured values are meaningless as
-TPU constants, but the machinery — measure, persist keyed by device kind,
-load, auto-apply — is fully checkable."""
+device they describe: a row per device_kind, or a calibration persisted on
+that device kind.  On the CPU test backend the measured values describe
+the CPU, but the machinery — measure, persist keyed by device kind, load,
+apply, refuse an unknown device — is fully checkable."""
 
 import json
-import os
 
 import numpy as np
 import pytest
 
 from cusp_autotuned_tpu.autotune import calibrate, cost_model
+from cusp_autotuned_tpu.gallery import poisson5pt
+
+_KEYS = {"stream_gbps", "dia_eff", "dense_eff", "gather_ns", "segsum_ns"}
+
+
+def _kind():
+    import jax
+    return jax.devices()[0].device_kind
 
 
 def test_calibrate_measures_and_persists(tmp_path, monkeypatch):
     path = str(tmp_path / "device_model.json")
     monkeypatch.setenv("CUSP_TPU_CALIBRATION", path)
-    consts = calibrate.calibrate(persist=True, apply=False, guard=False)
-    assert set(consts) >= {"stream_gbps", "tile_take_ns", "gather_ns",
-                           "segsum_ns"}
+    consts = calibrate.calibrate(persist=True, apply=False)
+    assert set(consts) == _KEYS
     assert all(np.isfinite(v) and v > 0 for v in consts.values())
     with open(path) as f:
         blob = json.load(f)
     assert blob["constants"]["stream_gbps"] == consts["stream_gbps"]
-    assert blob["device_kind"]  # keyed by the measuring device
+    assert blob["device_kind"] == _kind()  # keyed by the measuring device
 
-    loaded = calibrate.load(path)
+    loaded = calibrate.load(_kind(), path)
     assert loaded == pytest.approx(consts)
 
 
 def test_load_rejects_other_device_kind(tmp_path):
     path = str(tmp_path / "device_model.json")
     with open(path, "w") as f:
-        json.dump({"device_kind": "TPU v9000",
+        json.dump({"device_kind": "Some Other Card",
                    "constants": {"stream_gbps": 1.0}}, f)
-    assert calibrate.load(path) is None
+    assert calibrate.load(_kind(), path) is None
 
 
 def test_cost_model_auto_loads_calibration(tmp_path, monkeypatch):
-    """predict() picks up persisted constants on first use; literals
-    remain only the fallback."""
-    from cusp_autotuned_tpu.gallery import poisson5pt
-
+    """device_model() prefers constants persisted on this device kind over
+    the committed table."""
     path = str(tmp_path / "device_model.json")
     monkeypatch.setenv("CUSP_TPU_CALIBRATION", path)
-    import jax
-    kind = jax.devices()[0].device_kind
-    sentinel = 123.25
+    consts = {k: 1.0 for k in _KEYS}
+    consts["stream_gbps"] = 123.25
     with open(path, "w") as f:
-        json.dump({"device_kind": kind,
-                   "constants": {"stream_gbps": sentinel,
-                                 "not_a_model_key": 1.0}}, f)
-
-    saved = dict(cost_model.DEVICE_MODEL)
-    saved_flag = cost_model._calibration_checked
-    try:
-        cost_model._calibration_checked = False
-        cost_model.predict(poisson5pt(16, 16, format="csr",
-                                      dtype=np.float32))
-        assert cost_model.DEVICE_MODEL["stream_gbps"] == sentinel
-        assert "not_a_model_key" not in cost_model.DEVICE_MODEL
-    finally:
-        cost_model.DEVICE_MODEL.clear()
-        cost_model.DEVICE_MODEL.update(saved)
-        cost_model._calibration_checked = saved_flag
-        cost_model._SLOT_NS.clear()
+        json.dump({"device_kind": _kind(), "constants": consts}, f)
+    monkeypatch.setitem(cost_model.DEVICE_MODELS, _kind(),
+                        {k: 7.0 for k in _KEYS})
+    assert cost_model.device_model()["stream_gbps"] == 123.25
+    pred = cost_model.predict(poisson5pt(16, 16, format="csr",
+                                         dtype=np.float32))
+    assert "us" in pred["via_dia"]
 
 
 def test_default_path_prefers_env(monkeypatch):
@@ -74,8 +68,11 @@ def test_default_path_prefers_env(monkeypatch):
     assert calibrate.default_path() == "/tmp/x.json"
     monkeypatch.delenv("CUSP_TPU_CALIBRATION")
     monkeypatch.setenv("CUSP_TPU_TUNING_CACHE", "/tmp/cachedir/tuning.json")
-    p = calibrate.default_path("TPU v5e")
-    assert p.startswith("/tmp/cachedir/") and "TPU_v5e" in p
+    p = calibrate.default_path("NVIDIA H100 80GB HBM3")
+    assert p.startswith("/tmp/cachedir/") and "NVIDIA_H100_80GB_HBM3" in p
+    monkeypatch.delenv("CUSP_TPU_TUNING_CACHE")
+    p = calibrate.default_path("NVIDIA H100 80GB HBM3")
+    assert ".cusp_calibration" in p
 
 
 def test_calibrate_persists_to_bare_filename(tmp_path, monkeypatch):
@@ -83,94 +80,37 @@ def test_calibrate_persists_to_bare_filename(tmp_path, monkeypatch):
     instead of crashing in os.makedirs('') (review finding)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("CUSP_TPU_CALIBRATION", "model.json")
-    calibrate.calibrate(persist=True, apply=False, guard=False)
+    calibrate.calibrate(persist=True, apply=False)
     assert (tmp_path / "model.json").exists()
 
 
-def test_take_probe_takes_are_independent():
-    """Pin the calibration kernel's pattern (VERDICT r4 weak #1): every
-    pass must read the ORIGINAL x block through its own index plane — the
-    VMEM-sourced pattern real scattered kernels track at ~136 ns/pass —
-    not a dependent `acc = take(acc, ix)` chain (which composes the
-    permutations, measures ~68 ns on v5e, and would silently halve every
-    scattered-class price if applied)."""
-    import jax.numpy as jnp
-
-    G, passes = 2, 3
-    rng = np.random.RandomState(0)
-    idx = jnp.asarray(calibrate._take_probe_planes(rng))
-    x = rng.randn(G * calibrate.LANE, calibrate.LANE).astype(np.float32)
-    out = np.asarray(calibrate._take_probe_build(passes, idx, G)(
-        jnp.asarray(x)))
-
-    idx_np = np.asarray(idx)
-    L = calibrate.LANE
-    expect = np.zeros_like(x)
-    chained = x.copy()
-    chain_acc = np.zeros_like(x)
-    for p in range(passes):
-        planes = np.tile(idx_np[p * L:(p + 1) * L, :], (G, 1))
-        g = np.take_along_axis(x, planes, axis=1) * (1.0 + 0.001 * p)
-        expect = np.where(planes % 2 == p % 2, g + expect, expect)
-        chained = np.take_along_axis(chained, planes, axis=1)
-        chain_acc += chained * (1.0 + 0.001 * p)
-    np.testing.assert_allclose(out, expect, rtol=1e-6)
-    assert not np.allclose(out, chain_acc)   # the buggy pattern differs
+def test_calibrate_apply_registers_this_device(monkeypatch):
+    monkeypatch.setattr(cost_model, "DEVICE_MODELS", {})
+    monkeypatch.setenv("CUSP_TPU_CALIBRATION", "/nonexistent/x.json")
+    assert cost_model.device_model() is None
+    consts = calibrate.calibrate(persist=False, apply=True)
+    assert cost_model.DEVICE_MODELS[_kind()] == consts
+    assert cost_model.device_model() == consts
 
 
-def test_calibrate_guard_rejects_bad_constants(tmp_path, monkeypatch):
-    """Constants that break model-vs-archive agreement are discarded:
-    DEVICE_MODEL untouched, nothing persisted, 'rejected' flagged."""
-    path = str(tmp_path / "device_model.json")
-    monkeypatch.setenv("CUSP_TPU_CALIBRATION", path)
-    monkeypatch.setattr(calibrate, "_model_check_guard",
-                        lambda consts: dict(agree=5, total=14, rows=[]))
-    saved = dict(cost_model.DEVICE_MODEL)
-    with pytest.warns(UserWarning, match="rejected"):
-        consts = calibrate.calibrate(persist=True, apply=True)
-    assert consts["rejected"] and consts["model_agree"] == 5
-    assert cost_model.DEVICE_MODEL == saved
-    assert not os.path.exists(path)
+def test_unknown_device_gets_default_config(monkeypatch, caplog):
+    """No row and no persisted calibration: no model pick, the format's
+    default configuration, and a log line — never assumed constants."""
+    from cusp_autotuned_tpu.kernels.variants import default_config
+    monkeypatch.setattr(cost_model, "DEVICE_MODELS", {})
+    monkeypatch.setattr(cost_model, "_warned", set())
+    monkeypatch.setenv("CUSP_TPU_CALIBRATION", "/nonexistent/x.json")
+    A = poisson5pt(20, 20, format="csr", dtype=np.float32)
+    assert cost_model.predict(A) == {}
+    with caplog.at_level("WARNING"):
+        cfg, us = cost_model.recommend_config(A)
+    assert cfg == default_config(A) and us is None
+    assert "no cost-model constants" in caplog.text
+    key = cost_model.model_order_key(A)
+    assert key({"impl": "via_dia"}) == key({"impl": "segsum"})
 
 
-def test_calibrate_guard_accepts_good_constants(tmp_path, monkeypatch):
-    path = str(tmp_path / "device_model.json")
-    monkeypatch.setenv("CUSP_TPU_CALIBRATION", path)
-    monkeypatch.setattr(calibrate, "_model_check_guard",
-                        lambda consts: dict(agree=14, total=14, rows=[]))
-    saved = dict(cost_model.DEVICE_MODEL)
-    try:
-        consts = calibrate.calibrate(persist=True, apply=True)
-        assert "rejected" not in consts
-        assert os.path.exists(path)
-        assert (cost_model.DEVICE_MODEL["tile_take_ns"]
-                == consts["tile_take_ns"])
-        # non-model keys (agreement bookkeeping) must not leak in
-        assert "model_agree" not in cost_model.DEVICE_MODEL
-    finally:
-        cost_model.DEVICE_MODEL.clear()
-        cost_model.DEVICE_MODEL.update(saved)
-        cost_model._SLOT_NS.clear()
-
-
-def test_model_check_guard_restores_device_model():
-    """The guard must evaluate WITH the candidate constants applied and
-    restore the prior model afterwards regardless of outcome."""
-    seen = {}
-
-    saved = dict(cost_model.DEVICE_MODEL)
-    import benchmarks.model_check as mc
-
-    def spy_check():
-        seen["tile_take_ns"] = cost_model.DEVICE_MODEL["tile_take_ns"]
-        return dict(agree=14, total=14, rows=[])
-
-    orig = mc.check
-    mc.check = spy_check
-    try:
-        out = calibrate._model_check_guard(dict(tile_take_ns=999.0))
-        assert out["agree"] == 14
-        assert seen["tile_take_ns"] == 999.0
-        assert cost_model.DEVICE_MODEL == saved
-    finally:
-        mc.check = orig
+def test_committed_rows_are_complete():
+    for kind, row in cost_model.DEVICE_MODELS.items():
+        assert set(row) == _KEYS, kind
+        assert all(v > 0 for v in row.values()), kind

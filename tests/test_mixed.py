@@ -1,9 +1,10 @@
 """bf16 value storage (value_dtype config key) + mixed-precision refinement.
 
-TPU-native extension, no reference analogue: the planned value arrays of the
-Pallas rails store at bfloat16 (utils.config.plan_value_dtype), halving their
-HBM stream; kernels accumulate in the matrix dtype.  solvers.refine recovers
-full f32 accuracy by defect correction over the bf16 inner operator.
+An extension with no reference analogue: the planned value arrays of the
+DIA rails store at bfloat16 (utils.config.plan_value_dtype), halving their
+device-memory stream; kernels accumulate in float32.  solvers.refine
+recovers full f32 accuracy by defect correction over the bf16 inner
+operator.
 """
 
 import numpy as np
@@ -23,39 +24,42 @@ def _scatter(m=600, n=500, seed=1):
     return from_scipy(S, "coo")
 
 
+def _square_scatter(n=500, seed=2):
+    S = sp.random(n, n, density=0.01, random_state=seed, format="csr",
+                  dtype=np.float32)
+    return from_scipy(S, "csr")
+
+
+def _dia_scatter():
+    from cusp_autotuned_tpu.ops.convert import convert
+    return convert(_square_scatter(), "dia")
+
+
 @pytest.mark.parametrize("builder,make", [
-    ("build_dia", lambda: gallery.poisson5pt(30, 30, format="dia",
-                                             dtype=np.float32)),
-    ("build_binned", _scatter),
-    ("build_csr_onehot", _scatter),
-    ("build_colsort", _scatter),
-    ("build_colsort2", _scatter),
-    ("build_routed", _scatter),
+    ("slices", lambda: gallery.poisson5pt(30, 30, format="dia",
+                                          dtype=np.float32)),
+    ("via_dia", lambda: gallery.poisson5pt(30, 30, format="csr",
+                                           dtype=np.float32)),
+    ("slices", _dia_scatter),
+    ("via_dia", _scatter),
+    ("via_dia", _square_scatter),
+    ("rcm_dia", _square_scatter),
 ])
 def test_value_dtype_bf16_rails(builder, make):
-    from cusp_autotuned_tpu.kernels import (
-        pallas_binned, pallas_colsort, pallas_colsort2, pallas_csr,
-        pallas_dia, pallas_routed,
-    )
-    build = {"build_dia": pallas_dia.build_dia,
-             "build_binned": pallas_binned.build_binned,
-             "build_csr_onehot": pallas_csr.build_csr_onehot,
-             "build_colsort": pallas_colsort.build_colsort,
-             "build_colsort2": pallas_colsort2.build_colsort2,
-             "build_routed": pallas_routed.build_routed}[builder]
+    from cusp_autotuned_tpu.kernels.variants import build_spmv
     A = make()
     rng = np.random.default_rng(0)
     x = rng.standard_normal(A.num_cols).astype(np.float32)
     ref = reference_spmv(A, x)
-    y = np.asarray(build(A, {"value_dtype": "bfloat16"}, interpret=True)(
-        jnp.asarray(x)))
+    fn = build_spmv(A, {"value_dtype": "bfloat16", "impl": builder})
+    y = np.asarray(fn(jnp.asarray(x)))
     # output stays at the matrix dtype; error is bf16-rounding-bounded
     assert y.dtype == np.float32
     scale = max(1e-12, np.abs(ref).max())
     assert np.abs(y.astype(np.float64) - ref).max() / scale < 3e-2
     # and genuinely differs from the exact product on generic values
     # (bf16 rounding must actually have been applied)
-    if builder != "build_dia":   # poisson coefficients are bf16-exact
+    if A.num_rows != 900:          # poisson's coefficients are bf16-exact
         assert np.abs(y.astype(np.float64) - ref).max() / scale > 1e-5
 
 
@@ -82,7 +86,7 @@ def test_refine_reaches_f32_accuracy():
     b = rng.standard_normal(A.num_rows).astype(np.float32)
     mon = solvers.Monitor(b, iteration_limit=12, relative_tolerance=1e-6)
     x, mon = solvers.refine(A, b, monitor=mon,
-                            config={"impl": "binned"}, inner_rtol=1e-3)
+                            config={"impl": "via_dia"}, inner_rtol=1e-3)
     assert mon.converged(), mon.residuals
     r = b - reference_spmv(A, np.asarray(x))
     assert np.linalg.norm(r) <= 1e-6 * np.linalg.norm(b) * 1.01
@@ -106,10 +110,10 @@ def test_refine_matches_plain_cg_solution():
 def test_planned_operator_carries_value_dtype():
     """planned_operator(A, {value_dtype}) stores bf16 plan values."""
     A = _scatter()
-    op = planned_operator(A, {"impl": "binned", "value_dtype": "bfloat16"})
-    assert op.arrays["vals"].dtype == jnp.bfloat16
-    op32 = planned_operator(A, {"impl": "binned"})
-    assert op32.arrays["vals"].dtype == np.float32
+    op = planned_operator(A, {"impl": "via_dia", "value_dtype": "bfloat16"})
+    assert op.arrays["A"].data.dtype == jnp.bfloat16
+    op32 = planned_operator(A, {"impl": "via_dia"})
+    assert op32.arrays["A"].data.dtype == np.float32
 
 
 def test_value_dtype_bf16_slices_path():

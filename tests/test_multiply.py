@@ -96,7 +96,7 @@ def test_dimension_mismatch():
 
 
 def test_bfloat16_spmv():
-    """bf16 containers flow through SpMV (TPU-native dtype; loose tolerance)."""
+    """bf16 containers flow through SpMV (half-width storage; loose tolerance)."""
     import jax.numpy as jnp
     S = example_matrices()["tri37"]
     from cusp_autotuned_tpu.backend.reference import from_scipy

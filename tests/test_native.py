@@ -2,7 +2,6 @@
 the native AINV/RCM paths against the pure-Python fallbacks."""
 
 import numpy as np
-import pytest
 import scipy.sparse as sp
 
 from cusp_autotuned_tpu import native, gallery, graph, precond
@@ -66,33 +65,3 @@ def test_native_ainv_speed_scales():
     dt = time.time() - t0
     assert dt < 30.0
     assert np.all(np.isfinite(np.asarray(M(np.ones(2500)))))
-
-
-def test_native_routed_plan_matches_numpy():
-    """The one-pass C++ routed_plan must produce the EXACT plan the numpy
-    pipeline produces (same sorts, ranks, hub split, routing, block
-    numbering, fill filter) — verified over square/wide/tall patterns and
-    two (K, RSp, Wr) points."""
-    from unittest import mock
-    from cusp_autotuned_tpu.kernels import pallas_routed as prm
-
-    rng = np.random.RandomState(7)
-    shapes = [(4000, 4000, 6e-4), (1500, 6000, 8e-4), (6000, 1500, 8e-4)]
-    for mm, nn, dens in shapes:
-        S = sp.random(mm, nn, density=dens, random_state=rng, format="coo")
-        S.data = rng.randn(S.nnz)
-        row = S.row.astype(np.int64)
-        col = S.col.astype(np.int64)
-        val = S.data
-        for K, RSp, Wr in ((1, 32, 1), (2, 16, 2)):
-            a = prm._plan_routed(row, col, val, (mm, nn), K, RSp, Wr)
-            with mock.patch.object(native, "routed_plan",
-                                   lambda *a_, **k_: None):
-                b = prm._plan_routed(row, col, val, (mm, nn), K, RSp, Wr)
-            for lab, x, y in zip(("vals", "g1", "g2", "perm", "vbs", "cbs"),
-                                 a, b):
-                assert np.array_equal(x, y), (mm, nn, K, RSp, Wr, lab)
-            assert a[6] == b[6] and a[7] == b[7]
-            for x, y in zip(a[8], b[8]):   # tail triplets, order-free
-                assert np.array_equal(np.sort(np.asarray(x)),
-                                      np.sort(np.asarray(y)))

@@ -177,50 +177,6 @@ def test_solver_mesh_arg_bicgstab_gmres_cr():
         assert np.linalg.norm(r) <= 2e-3 * np.linalg.norm(b), solve.__name__
 
 
-# -- distributed binned (unstructured) kernel --------------------------------------
-
-def test_sharded_binned_spmv_matches():
-    from cusp_autotuned_tpu.parallel import sharded_spmv_binned_shardmap
-    mesh = make_row_mesh(jax.devices())
-    A = gallery.poisson9pt(20, 72, format="csr", dtype=np.float32)
-    x = np.linspace(-1, 1, A.num_cols).astype(np.float32)
-    fn = sharded_spmv_binned_shardmap(
-        A, mesh, {"block_entries": 512, "col_window": 1024,
-                  "row_window": 128})
-    y = np.asarray(jax.jit(fn)(jnp.asarray(x)))
-    np.testing.assert_allclose(y, reference_spmv(A, x), rtol=1e-4, atol=1e-5)
-
-
-def test_sharded_binned_spmv_hub_spill():
-    import scipy.sparse as sp
-    from cusp_autotuned_tpu.parallel import sharded_spmv_binned_shardmap
-    mesh = make_row_mesh(jax.devices())
-    rng = np.random.RandomState(5)
-    S = sp.random(1024, 1024, density=0.01, random_state=rng).tocsr() \
-        + sp.eye(1024)
-    # a dense row forces the hub-spill correction across device boundaries
-    S[3, :200] = 1.0
-    A = from_scipy(S.tocoo(), "csr")
-    x = rng.randn(1024).astype(np.float32)
-    fn = sharded_spmv_binned_shardmap(
-        A, mesh, {"block_entries": 512, "col_window": 2048,
-                  "row_window": 128, "hub_cap": 16})
-    y = np.asarray(jax.jit(fn)(jnp.asarray(x)))
-    np.testing.assert_allclose(y, reference_spmv(A, x), rtol=1e-4, atol=1e-4)
-
-
-def test_distributed_cg_binned():
-    from cusp_autotuned_tpu.parallel import distributed_cg_binned
-    mesh = make_row_mesh(jax.devices())
-    A = gallery.poisson5pt(16, 64, format="csr", dtype=np.float32)
-    b = np.ones(A.num_rows, np.float32)
-    x, r_norm = distributed_cg_binned(
-        A, b, mesh, {"block_entries": 512, "col_window": 1024,
-                     "row_window": 128}, iterations=60)
-    r = b - np.asarray(multiply(A, np.asarray(x)))
-    assert np.linalg.norm(r) <= 1e-3 * np.linalg.norm(b)
-
-
 def test_solver_mesh_arg_multishift():
     from cusp_autotuned_tpu import solvers
     mesh = make_row_mesh(jax.devices())
@@ -233,35 +189,6 @@ def test_solver_mesh_arg_multishift():
         r = b - (np.asarray(multiply(A, np.asarray(X[s])))
                  + sig * np.asarray(X[s]))
         assert np.linalg.norm(r) <= 5e-3 * np.linalg.norm(b), s
-
-
-def test_sharded_colsort_spmv_matches():
-    from cusp_autotuned_tpu.parallel import sharded_spmv_colsort_shardmap
-    import scipy.sparse as sp
-    mesh = make_row_mesh(jax.devices())
-    rng = np.random.RandomState(6)
-    S = sp.random(2048, 2048, density=0.008, random_state=rng).tocsr() \
-        + sp.eye(2048)
-    S[7, :300] = 1.5                       # a hub row crossing devices
-    A = from_scipy(S.tocoo(), "csr")
-    x = rng.randn(2048).astype(np.float32)
-    fn = sharded_spmv_colsort_shardmap(
-        A, mesh, {"block_entries": 512, "col_window": 2048,
-                  "row_window": 256, "hub_cap": 16})
-    y = np.asarray(jax.jit(fn)(jnp.asarray(x)))
-    np.testing.assert_allclose(y, reference_spmv(A, x), rtol=1e-4, atol=1e-4)
-
-
-def test_distributed_cg_colsort():
-    from cusp_autotuned_tpu.parallel import distributed_cg_binned
-    mesh = make_row_mesh(jax.devices())
-    A = gallery.poisson5pt(16, 64, format="csr", dtype=np.float32)
-    b = np.ones(A.num_rows, np.float32)
-    x, r_norm = distributed_cg_binned(
-        A, b, mesh, {"block_entries": 512, "col_window": 2048,
-                     "row_window": 256}, iterations=60, impl="colsort")
-    r = b - np.asarray(multiply(A, np.asarray(x)))
-    assert np.linalg.norm(r) <= 1e-3 * np.linalg.norm(b)
 
 
 def test_distributed_amg_cg_matches_single_device():

@@ -3,9 +3,9 @@ aggregation, and the broadcast/reshape tentative applies that replace
 scattered R/P kernels on raster-ordered stencil levels (VERDICT r3 item 3).
 
 No reference analog — the reference applies T/P/R as generic sparse
-matrices (cusp/precond/aggregation/detail/tentative.inl); the TPU rebuild
-specializes the grid case because a 1-nnz/row scattered SpMV is XLU-bound
-while upsample/fold-sum run at HBM stream rate."""
+matrices (cusp/precond/aggregation/detail/tentative.inl); the rebuild
+specializes the grid case because upsample/fold-sum run at the stream
+rate while a 1-nnz/row scattered SpMV gathers."""
 
 import numpy as np
 import pytest
